@@ -1,0 +1,249 @@
+"""Vectorized environment: N arenas stepped in lockstep on one device.
+
+The JAX package vmaps a one-arena step; here every function is written
+over a leading env axis ``N`` (players ``P`` next).  The physics advance
+is one launch of the arena-step kernel (``ops.arena_step``); observations,
+rewards, terminals and auto-reset are plain tensor code around it.
+
+Auto-reset: terminal arenas are re-seeded by the state setter in the same
+step (EnvSet::Reset semantics); the pre-reset observation is returned as
+``final_obs`` for truncation bootstrapping.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from reinforcement_learning_torch import constants as C
+from reinforcement_learning_torch.device import resolve_device, tree_map
+from reinforcement_learning_torch.envs import events as eventsmod
+from reinforcement_learning_torch.envs import rewards as R
+from reinforcement_learning_torch.envs import state_setters, terminals
+from reinforcement_learning_torch.envs.actions import DefaultAction
+from reinforcement_learning_torch.envs.obs import AdvancedObs
+from reinforcement_learning_torch.envs.rewards import (RewardCtx,
+                                                       WeightedReward,
+                                                       combine_rewards)
+from reinforcement_learning_torch.ops.arena_step import arena_step
+from reinforcement_learning_torch.physics import step as stepmod
+from reinforcement_learning_torch.physics.state import NUM_CONTROLS
+
+
+@dataclasses.dataclass(frozen=True)
+class EnvConfig:
+    """EnvSetConfig plus the plugin set (EnvSet.h:26-33)."""
+    num_envs: int = 64
+    team_size: int = 1
+    spawn_opponents: bool = True
+    tick_skip: int = 8
+    action_delay: int = 7
+    game_mode: str = "soccar"
+    arena: stepmod.ArenaParams = None   # filled in by the env
+    no_touch_timeout: float = 30.0
+    max_episode_seconds: float = 300.0
+    device: str | None = None           # None: "cuda"
+
+    @property
+    def cars_per_arena(self) -> int:
+        return self.team_size * (2 if self.spawn_opponents else 1)
+
+    @property
+    def step_seconds(self) -> float:
+        return self.tick_skip / 120.0
+
+    def make_teams(self) -> np.ndarray:
+        teams = np.zeros(self.cars_per_arena, np.int32)
+        if self.spawn_opponents:
+            teams[self.team_size:] = 1
+        return teams
+
+
+@dataclasses.dataclass
+class EnvState:
+    """Every arena's env state; leading axis N."""
+    phys: stepmod.PhysicsState
+    prev_arena: object                # ArenaState of the previous step
+    has_prev: torch.Tensor            # (N,) bool
+    prev_actions: torch.Tensor        # (N, P, 8) controls shown in the obs
+    steps_since_touch: torch.Tensor   # (N,) int32
+    steps_since_reset: torch.Tensor   # (N,) int32
+    blue_score: torch.Tensor          # (N,) int32 goals since reset
+    orange_score: torch.Tensor        # (N,) int32
+    tracker: eventsmod.TrackerState
+
+
+@dataclasses.dataclass
+class StepOutput:
+    obs: torch.Tensor           # (N, P, obs_size), after auto-reset
+    final_obs: torch.Tensor     # (N, P, obs_size), before it
+    reward: torch.Tensor        # (N, P)
+    terminal_type: torch.Tensor  # (N,) int32
+    action_mask: torch.Tensor   # (N, P, A) bool
+    ball_touched: torch.Tensor  # (N, P) bool
+    goal_scored: torch.Tensor   # (N,) bool
+    reward_components: dict     # name -> (N, P)
+
+
+@dataclasses.dataclass
+class TerminalCtx:
+    goal_scored: torch.Tensor
+    steps_since_touch: torch.Tensor
+    steps_since_reset: torch.Tensor
+    blue_score: torch.Tensor
+    orange_score: torch.Tensor
+
+
+class RocketLeagueEnv:
+    """N-arena environment on ``config.device`` (default ``"cuda"``)."""
+
+    def __init__(self, config: EnvConfig,
+                 reward_fns: Sequence[WeightedReward] | None = None,
+                 terminal_conds=None, state_setter=None,
+                 event_config: eventsmod.EventConfig | None = None):
+        if config.arena is None:
+            config = dataclasses.replace(config, arena=stepmod.ArenaParams(
+                num_cars=config.cars_per_arena, game_mode=config.game_mode))
+        self.config = config
+        self.device = resolve_device(config.device)
+        self.params = config.arena
+        self.teams_np = config.make_teams()
+        self.teams = torch.as_tensor(self.teams_np, device=self.device)
+        P = config.cars_per_arena
+
+        self.obs_builder = AdvancedObs(P, self.teams_np, self.device)
+        self.action_parser = DefaultAction(self.device)
+        self.reward_fns = list(reward_fns) if reward_fns is not None else [
+            WeightedReward(R.velocity_player_to_ball_reward(), 0.3),
+            WeightedReward(R.touch_ball_reward(), 1.0),
+            WeightedReward(R.goal_reward(), 30.0),
+        ]
+        self.reward_combined = combine_rewards(self.reward_fns)
+        self.terminal_fn = terminals.combine_conditions(
+            terminal_conds if terminal_conds is not None else [
+                terminals.goal_score_condition(),
+                terminals.no_touch_condition(config.no_touch_timeout,
+                                             config.step_seconds),
+                terminals.timeout_condition(config.max_episode_seconds,
+                                            config.step_seconds),
+            ])
+        self.state_setter = state_setter or state_setters.kickoff_state()
+        self.event_config = event_config or eventsmod.EventConfig()
+        self.num_actions = self.action_parser.num_actions
+        self.obs_size = self.obs_builder.obs_size
+        self.generator = torch.Generator(device=self.device)
+
+    # ------------------------------------------------------------------
+    def _reset_states(self) -> EnvState:
+        N, P = self.config.num_envs, self.config.cars_per_arena
+        dev = self.device
+        phys = self.state_setter(self.generator, self.params, self.teams, N,
+                                 dev)
+        zi = lambda: torch.zeros(N, dtype=torch.int32, device=dev)  # noqa
+        return EnvState(
+            phys=phys, prev_arena=phys.arena,
+            has_prev=torch.zeros(N, dtype=torch.bool, device=dev),
+            prev_actions=torch.zeros(N, P, NUM_CONTROLS, device=dev),
+            steps_since_touch=zi(), steps_since_reset=zi(),
+            blue_score=zi(), orange_score=zi(),
+            tracker=eventsmod.TrackerState.make(N, dev))
+
+    def obs(self, state: EnvState) -> torch.Tensor:
+        a = state.phys.arena
+        return self.obs_builder.build(a.cars, a.ball, a.pads,
+                                      state.prev_actions)
+
+    def action_mask(self, state: EnvState) -> torch.Tensor:
+        return self.action_parser.action_mask(state.phys.arena.cars)
+
+    def reset(self, seed: int = 0):
+        """Seed the env's generator and reset every arena.  Returns (state,
+        obs (N, P, D), masks (N, P, A))."""
+        self.generator.manual_seed(seed)
+        state = self._reset_states()
+        return state, self.obs(state), self.action_mask(state)
+
+    def physics_step(self, state: EnvState, controls: torch.Tensor):
+        """The kernel launch: one respawn-table draw per car, then every
+        arena through ``tick_skip`` ticks."""
+        cfg = self.config
+        respawn_idx = torch.randint(
+            0, C.CAR_RESPAWN_LOCATION_AMOUNT, controls.shape[:2],
+            generator=self.generator, device=self.device, dtype=torch.int32)
+        return arena_step(state.phys, controls, respawn_idx, self.params,
+                          self.teams_np, cfg.tick_skip, cfg.action_delay)
+
+    def step(self, state: EnvState, action_idx: torch.Tensor):
+        """``action_idx``: (N, P) int.  Returns (state, StepOutput)."""
+        controls = self.action_parser.parse(action_idx)
+        phys = self.physics_step(state, controls)
+        return self.post_physics(state, phys, controls)
+
+    def post_physics(self, state: EnvState, phys, controls):
+        """Touch attribution, events, terminals, rewards, auto-reset, obs
+        (env.py _post_physics_one of the JAX package, over all arenas)."""
+        cfg = self.config
+        arena = phys.arena
+        tick = arena.tick_count
+        touched = arena.cars.ball_hit_valid & (
+            arena.cars.ball_hit_tick >= (tick - cfg.tick_skip)[:, None])
+
+        tracker, ev = eventsmod.update_tracker(
+            state.tracker, arena.cars, arena.ball, self.teams, tick,
+            arena.goal_scored, cfg.tick_skip, self.params.mutators,
+            self.event_config)
+        ev = dict(ev, bump=arena.step_bump, bumped=arena.step_bumped,
+                  demo=arena.step_demo, demoed=arena.step_demoed)
+
+        steps_since_touch = torch.where(touched.any(-1), 0,
+                                        state.steps_since_touch + 1)
+        steps_since_reset = state.steps_since_reset + 1
+        # goals counted from the ball's side (ExampleMain.cpp:46-124)
+        blue_side = arena.ball.pos[:, 1] > 0
+        blue_score = state.blue_score + (arena.goal_scored
+                                         & blue_side).to(torch.int32)
+        orange_score = state.orange_score + (arena.goal_scored
+                                             & ~blue_side).to(torch.int32)
+        terminal_type = self.terminal_fn(TerminalCtx(
+            goal_scored=arena.goal_scored,
+            steps_since_touch=steps_since_touch,
+            steps_since_reset=steps_since_reset,
+            blue_score=blue_score, orange_score=orange_score))
+
+        reward, components = self.reward_combined(RewardCtx(
+            cars=arena.cars, prev_cars=state.phys.arena.cars,
+            ball=arena.ball, prev_ball=state.phys.arena.ball,
+            teams=self.teams, ball_touched_step=touched,
+            goal_scored=arena.goal_scored, has_prev=state.has_prev,
+            is_final=terminal_type, events=ev, blue_score=blue_score,
+            orange_score=orange_score))
+
+        next_state = EnvState(
+            phys=phys, prev_arena=arena,
+            has_prev=torch.ones_like(state.has_prev),
+            prev_actions=controls,
+            steps_since_touch=steps_since_touch.to(torch.int32),
+            steps_since_reset=steps_since_reset,
+            blue_score=blue_score, orange_score=orange_score,
+            tracker=tracker)
+        final_obs = self.obs(next_state)
+
+        # auto-reset (EnvSet::Reset); every arena draws a reset state so
+        # the step has no host sync, the terminal ones take it
+        is_terminal = terminal_type != terminals.NOT_TERMINAL
+        reset_state = self._reset_states()
+        next_state = tree_map(
+            lambda r, n: torch.where(
+                is_terminal.reshape((-1,) + (1,) * (n.dim() - 1)), r, n),
+            reset_state, next_state)
+
+        out = StepOutput(
+            obs=self.obs(next_state), final_obs=final_obs, reward=reward,
+            terminal_type=terminal_type,
+            action_mask=self.action_mask(next_state),
+            ball_touched=touched, goal_scored=arena.goal_scored,
+            reward_components=components)
+        return next_state, out

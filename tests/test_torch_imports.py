@@ -1,0 +1,41 @@
+"""The port stands alone: no module of it, and not ``chip_smoke.py``,
+imports JAX (or flax/optax), the JAX package or ``tools``."""
+
+from __future__ import annotations
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "reinforcement_learning_tpu",
+             "tools")
+FILES = sorted((ROOT / "reinforcement_learning_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_the_port_has_its_modules():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for mod in ("constants", "maths", "physics/state", "physics/step",
+                "ops/pack", "ops/ctick", "ops/arena_step", "envs/env",
+                "envs/obs", "models/mlp", "learn/ppo", "learn/trainer"):
+        assert f"reinforcement_learning_torch/{mod}.py" in names, mod
+    assert (ROOT / "reinforcement_learning_torch/csrc/arena_step.cu").exists()
+
+
+@pytest.mark.parametrize("path", FILES,
+                         ids=[p.relative_to(ROOT).as_posix() for p in FILES])
+def test_no_jax_import(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.name} imports {sorted(bad)}"

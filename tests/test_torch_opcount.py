@@ -1,0 +1,84 @@
+"""The work count behind the physics kernel's bound (ops/opcount.py): the
+plain step it runs is the plain step, and the gated solvers count only
+where their contact exists."""
+
+from __future__ import annotations
+
+import torch
+
+from reinforcement_learning_torch.device import tree_map
+from reinforcement_learning_torch.ops import arena_step as arena_step_mod
+from reinforcement_learning_torch.ops import ctick, opcount
+from reinforcement_learning_torch.physics import step as tstep
+
+E, CARS, TEAMS = 2, 4, (0, 0, 1, 1)
+TICKS = 2
+
+torch.set_num_threads(1)
+
+
+def _params():
+    return tstep.ArenaParams(num_cars=CARS, use_mesh=False,
+                             dynamic_wheel_rays=False)
+
+
+def _state(overlap: bool):
+    """Cars on the floor at the corners of a 4000 uu square, the ball at
+    rest in the middle; with ``overlap`` car 2 stands 140 uu ahead of car
+    0, hitboxes into each other, facing it."""
+    phys = tstep.make_physics_state(_params(), batch=(E,), device="cpu")
+    cars = phys.arena.cars
+    cars.pos = torch.tensor([[-2000., -2000., 17.], [2000., -2000., 17.],
+                             [-2000., 2000., 17.], [2000., 2000., 17.]]
+                            ).expand(E, CARS, 3).clone()
+    if overlap:
+        cars.pos[:, 2] = cars.pos[:, 0] + torch.tensor([140., 5., 0.])
+        cars.rot[:, 2] = torch.tensor([[-1., 0., 0.], [0., -1., 0.],
+                                       [0., 0., 1.]])
+        cars.vel[:, 0, 0] = 1200.0
+    return phys
+
+
+def _work(phys):
+    ctl = torch.zeros(E, CARS, 8)
+    ctl[..., 0] = 1.0
+    ridx = torch.zeros(E, CARS, dtype=torch.int32)
+    consts = arena_step_mod._consts(_params(), TEAMS)
+    work = opcount.step_work(phys, ctl, ridx, consts, tick_skip=TICKS,
+                             action_delay=0)
+    want = ctick.arena_step_reference(phys, ctl, ridx, consts, TICKS, 0)
+    total, _ = opcount.count_ops(lambda: ctick.arena_step_reference(
+        phys, ctl, ridx, consts, TICKS, 0))
+    return work, want, total
+
+
+def test_step_work_runs_the_plain_step_and_restores_it():
+    before = (ctick._pgs_pair, ctick._contact_vs_static)
+    work, want, total = _work(_state(overlap=True))
+    tree_map(lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0),
+             work.out, want)
+    assert (ctick._pgs_pair, ctick._contact_vs_static) == before
+    assert work.ops_branch_free == total
+    assert 0 < work.ops_needed < work.ops_branch_free
+    for name, (needed, full) in work.by_gate.items():
+        assert 0 <= needed <= full, name
+        assert full > 0, name
+
+
+def test_gated_work_follows_the_contacts():
+    apart, _, _ = _work(_state(overlap=False))
+    touching, _, _ = _work(_state(overlap=True))
+    for name in ("_pgs_pair", "_manifold", "_car_ball_rows"):
+        assert apart.by_gate[name][0] == 0, name
+    # one pair of six overlaps in every arena
+    needed, full = touching.by_gate["_pgs_pair"]
+    assert 0 < needed <= full / 6 + 1e-6 * full
+    assert touching.by_gate["_manifold"][0] > 0
+    assert touching.ops_needed > apart.ops_needed
+
+
+def test_count_ops_counts_output_elements_of_arithmetic():
+    a = torch.ones(3, 4)
+    ops, calls = opcount.count_ops(lambda: torch.where(a > 0, a * 2 + 1, a))
+    assert ops == 24           # mul and add; compare and select not counted
+    assert calls == 4
