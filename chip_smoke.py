@@ -6,26 +6,40 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which must pass (nothing is caught):
 
-1. build the arena-step kernel (csrc/arena_step.cu) with nvcc for sm_90a;
-2. hold the kernel against its plain PyTorch version (ops/ctick.py) on the
-   card at E=1024 arenas x 4 cars, plane arena, from five states: a few
-   random env steps after kickoff, demolished cars respawning mid-step,
-   opposing cars overlapping (bumps and demos), a car driving into the
-   ball, and the ball and a car flying into the walls and the goal
-   openings;
-3. the main path: ``RocketLeagueEnv`` 1024 x 2v2 and a ``PPOLearner`` at
-   the bench widths in bf16, ``Trainer.collect`` for 24 env steps, with
-   the kernel's launch count read around that run; then the kernel held
-   against the plain version on the state the collection ends in, the
+1. build the arena-step kernel (csrc/arena_step.cu with cvec.cuh and
+   facets.cuh) with nvcc for sm_90a;
+2. plane arena (``use_mesh=False``, ``dynamic_wheel_rays=False``): hold the
+   kernel against its plain PyTorch version (ops/ctick.py) on the card at
+   E=1024 arenas x 4 cars from five states: random env steps after
+   kickoff, demolished cars respawning mid-step, opposing cars overlapping
+   (bumps and demos), a car driving into the ball, and the ball and a car
+   flying into the walls and the goal openings;
+3. full fidelity (the default ``ArenaParams``: the facet arena and dynamic
+   wheel rays): the same at E=1024 from seven crafted states, the ball
+   into a floor fillet, a car driving up a back wall, a car flying side
+   first into a back wall, the ball into a corner seam (more than 8 live
+   contact candidates), the ball into the goal's net and crossbar, a car
+   dropped on the ball and a car dropped on another car's roof; each
+   shows that its contact happened where no true plane can stand in,
+   reading the plain step's facet candidates or wheel rays;
+4. the two paths, each with the kernel's launch count set to 0 before and
+   read after: ``RocketLeagueEnv`` 1024 x 2v2 and a ``PPOLearner`` at the
+   bench widths in bf16, ``Trainer.collect`` for 24 env steps, first on
+   the plane arena (the earlier slice's path), then at full fidelity (the
+   main path, the default ``EnvConfig`` with no arena override); on each
+   path's end state the kernel is held against the plain version, the
    plain run counting the work those inputs need for the kernel's bound
-   (ops/opcount.py), and the kernel, the plain version and the
-   collection timed;
-4. the same collection at 8 arenas on the card against the plain path on
-   the CPU, deterministic actions, fp32.
+   (ops/opcount.py), and the kernel, the plain version and the collection
+   are timed;
+5. the full-fidelity collection at 8 arenas on the card against the plain
+   path on the CPU, deterministic actions, fp32.
 
-Prints the card's name and power limit, a ``kernels`` JSON line, and as its
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero without a
-CUDA card or without the repository beside it.
+Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` and allows
+at most one arena (0.1% of 1024) with a differing boolean or integer,
+none in the demo and car-car states.  Prints the card's name and power
+limit, a ``kernels`` JSON line with one entry per configuration, and as
+its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
+a CUDA card or without the repository beside it.
 """
 
 from __future__ import annotations
@@ -63,11 +77,18 @@ def flatten(obj, prefix=""):
     return out
 
 
+# Timers that a discrete event resets to a constant (a bump, a demo): an
+# arena where one of them disagrees beyond its tolerance had the event on
+# one side only, and counts with the arenas whose booleans differ.
+EVENT_TIMERS = ("arena.cars.car_contact_cooldown",
+                "arena.cars.demo_respawn_timer")
+
+
 def compare(name, got, want, allowed_arenas):
     """Hold kernel output ``got`` to the plain version's ``want`` field by
-    field.  Arenas where an integer or boolean field differs are listed;
-    at most ``allowed_arenas`` may, and their floats are not compared.
-    Returns the worst float deviation."""
+    field.  Arenas where an integer or boolean field, or an event timer,
+    differs are listed; at most ``allowed_arenas`` may, and their floats
+    are not compared.  Returns the worst float deviation."""
     import torch
     from reinforcement_learning_torch.ops.ctick import (DEFAULT_TOLERANCE,
                                                         TOLERANCES)
@@ -75,15 +96,23 @@ def compare(name, got, want, allowed_arenas):
     bad = torch.zeros(E, dtype=torch.bool, device=g["arena.tick_count"].device)
     flips = {}
     for k, a in w.items():
-        if a.dtype.is_floating_point:
+        if a.dtype.is_floating_point and k not in EVENT_TIMERS:
             continue
-        d = (g[k] != a).reshape(E, -1).any(-1)
+        if k in EVENT_TIMERS:
+            atol, rtol = TOLERANCES.get(k, DEFAULT_TOLERANCE)
+            d = ((g[k] - a).abs() > atol + rtol * a.abs()).reshape(E, -1)
+            d = d.any(-1)
+            for e in d.nonzero()[:, 0].tolist()[:4]:
+                print(f"[{name}] arena {e}: {k} kernel {g[k][e].tolist()} "
+                      f"plain {a[e].tolist()}")
+        else:
+            d = (g[k] != a).reshape(E, -1).any(-1)
         if d.any():
             flips[k] = d.nonzero()[:, 0].tolist()
         bad |= d
     n_bad = int(bad.sum())
-    print(f"[{name}] arenas with a differing boolean/int: {n_bad} "
-          f"{json.dumps(flips)}")
+    print(f"[{name}] arenas with a differing boolean/int/event timer: "
+          f"{n_bad} {json.dumps(flips)}")
     if n_bad > allowed_arenas:
         fail(f"{name}: {n_bad} arenas differ in a boolean (allowed "
              f"{allowed_arenas})")
@@ -99,8 +128,11 @@ def compare(name, got, want, allowed_arenas):
         atol, rtol = TOLERANCES.get(k, DEFAULT_TOLERANCE)
         lim = atol + rtol * a[ok].abs()
         if bool((dev > lim).any()) or not bool(torch.isfinite(b).all()):
+            at = int((dev - lim).reshape(dev.shape[0], -1).amax(-1).argmax())
+            e = int(ok.nonzero()[at, 0])
             fail(f"{name}: {k} off by {worst[k]:.3g} (atol {atol}, rtol "
-                 f"{rtol})")
+                 f"{rtol}); arena {e}: kernel {b[e].tolist()} plain "
+                 f"{a[e].tolist()}")
     print(f"[{name}] worst |kernel - plain| per field: "
           + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
     return err
@@ -156,91 +188,47 @@ def small_collect_agrees(dev, params):
             fail(f"small collection: {k} differs between {dev} and CPU")
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this script needs a card")
-    sys.path.insert(0, ROOT)
-    from reinforcement_learning_torch.envs.env import (EnvConfig,
-                                                       RocketLeagueEnv)
-    from reinforcement_learning_torch.learn.ppo import PPOConfig
-    from reinforcement_learning_torch.learn.trainer import (Trainer,
-                                                            TrainerConfig)
-    from reinforcement_learning_torch.ops import arena_step as A
-    from reinforcement_learning_torch.ops import ctick, opcount
-    from reinforcement_learning_torch.physics.step import ArenaParams
+class States:
+    """Crafted kernel-vs-plain states, made on the card from one seeded
+    generator on top of a random state of the env."""
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()
-    card = smi[0] if smi else "nvidia-smi: no output"
-    print(card)
-    dev = torch.device("cuda")
-    t_all = time.perf_counter()
+    def __init__(self, dev, gen):
+        self.dev, self.gen = dev, gen
 
-    # 1. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    so, log = A.build(verbose=True)
-    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s")
-    for line in log.splitlines():
-        if any(w in line for w in ("entry function", "registers",
-                                   "spill")):
-            print(f"[build] {line.strip()}")
-    lib = A._library()
+    def u(self, lo, hi):
+        import torch
+        return lo + (hi - lo) * torch.rand(E, generator=self.gen,
+                                           device=self.dev)
 
-    # 2. kernel vs plain ------------------------------------------------
-    params = ArenaParams(num_cars=CARS, use_mesh=False,
-                         dynamic_wheel_rays=False)
-    env = RocketLeagueEnv(EnvConfig(num_envs=E, team_size=2, arena=params,
-                                    device="cuda"))
-    teams = env.teams_np
-    consts = A._consts(params, tuple(int(t) for t in teams))
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    state, _, masks = env.reset(SEED)
-    for _ in range(6):
-        act = torch.randint(0, env.num_actions, (E, CARS), generator=gen,
-                            device=dev)
-        state, _ = env.step(state, act)
-    phys_random = state.phys
-
-    def controls():
-        analog = torch.rand(E, CARS, 5, generator=gen, device=dev) * 2 - 1
-        buttons = (torch.rand(E, CARS, 3, generator=gen, device=dev)
-                   > 0.5).float()
-        return torch.cat([analog, buttons], -1)
-
-    def ridx():
-        return torch.randint(0, 4, (E, CARS), generator=gen, device=dev,
-                             dtype=torch.int32)
-
-    def demo_state(phys):
+    def copy(self, phys):
         from reinforcement_learning_torch.device import tree_map
-        phys = tree_map(lambda t: t.clone(), phys)
+        return tree_map(lambda t: t.clone(), phys)
+
+    def demo(self, phys):
+        import torch
+        phys = self.copy(phys)
         cars = phys.arena.cars
         demoed = torch.zeros_like(cars.is_demoed)
         demoed[:, 0] = demoed[:, 3] = True
-        ticks = torch.randint(1, 10, (E, CARS), generator=gen, device=dev)
+        ticks = torch.randint(1, 10, (E, CARS), generator=self.gen,
+                              device=self.dev)
         cars.is_demoed = demoed
         cars.demo_respawn_timer = torch.where(demoed, ticks / 120.0, 0.0)
         return phys
 
-    def overlap_state(phys):
+    def overlap(self, phys):
         """Car 0 drives into car 2 and car 3 into car 1, nearly head-on,
         hitboxes a few uu into each other; half the attackers are
         supersonic."""
+        import torch
         from reinforcement_learning_torch import maths
-        from reinforcement_learning_torch.device import tree_map
-        phys = tree_map(lambda t: t.clone(), phys)
+        phys = self.copy(phys)
         cars = phys.arena.cars
-        u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
-            E, generator=gen, device=dev)
+        u = self.u
         for att, vic, y0 in ((0, 2, -1500.0), (3, 1, 1500.0)):
             x0 = u(-2000, 2000)
             ya, yv = u(-0.15, 0.15), torch.pi + u(-0.15, 0.15)
-            fast = torch.arange(E, device=dev) % 2 == 0
+            fast = torch.arange(E, device=self.dev) % 2 == 0
             speed = torch.where(fast, 2250.0, 900.0)
             z = torch.full_like(x0, 17.0)
             cars.pos[:, att] = torch.stack([x0, torch.full_like(x0, y0), z],
@@ -260,14 +248,13 @@ def main():
             cars.is_on_ground[:, att] = cars.is_on_ground[:, vic] = True
         return phys
 
-    def car_ball_state(phys):
+    def car_ball(self, phys):
         """Car 0 drives into the resting ball from about 150 uu behind it,
         a little off centre; the ball anywhere on the field."""
-        from reinforcement_learning_torch.device import tree_map
-        phys = tree_map(lambda t: t.clone(), phys)
+        import torch
+        phys = self.copy(phys)
         cars, ball = phys.arena.cars, phys.arena.ball
-        u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
-            E, generator=gen, device=dev)
+        u = self.u
         bx, by = u(-3000, 3000), u(-4000, 4000)
         ball.pos = torch.stack([bx, by, torch.full_like(bx, 93.15)], -1)
         ball.vel = torch.zeros_like(ball.vel)
@@ -275,22 +262,22 @@ def main():
         cars.pos[:, 0] = torch.stack([bx - 150 + u(-10, 20), by + u(-30, 30),
                                       torch.full_like(bx, 17.0)], -1)
         cars.vel[:, 0] = torch.stack([u(800, 1600), 0 * bx, 0 * bx], -1)
-        cars.rot[:, 0] = torch.eye(3, device=dev)
+        cars.rot[:, 0] = torch.eye(3, device=self.dev)
         cars.ang_vel[:, 0] = 0.0
         cars.is_demoed[:, 0] = False
         return phys
 
-    def wall_state(phys):
+    def walls(self, phys):
         """The ball flies into a side wall (even arenas) or a back wall,
         into the goal where it meets the opening; car 1 drives into a side
         wall and car 2 falls onto the floor from above."""
-        from reinforcement_learning_torch.device import tree_map
-        phys = tree_map(lambda t: t.clone(), phys)
+        import torch
+        from reinforcement_learning_torch import maths
+        phys = self.copy(phys)
         cars, ball = phys.arena.cars, phys.arena.ball
-        u = lambda lo, hi: lo + (hi - lo) * torch.rand(  # noqa: E731
-            E, generator=gen, device=dev)
+        u = self.u
         sign = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
-        side = torch.arange(E, device=dev) % 2 == 0
+        side = torch.arange(E, device=self.dev) % 2 == 0
         near = sign * (4000.0 - u(0, 40))
         across = u(-1500, 1500)
         ball.pos = torch.stack([torch.where(side, near, across),
@@ -302,7 +289,6 @@ def main():
                                 torch.where(side, u(-300, 300), fast),
                                 u(-300, 300)], -1)
         ball.ang_vel = torch.stack([u(-2, 2), u(-2, 2), u(-2, 2)], -1)
-        from reinforcement_learning_torch import maths
         wall_x = -sign * (4096.0 - 80.0 - u(0, 30))
         cars.pos[:, 1] = torch.stack([wall_x, u(-3000, 3000),
                                       torch.full_like(wall_x, 17.0)], -1)
@@ -316,49 +302,213 @@ def main():
         cars.is_demoed[:, 1] = cars.is_demoed[:, 2] = False
         return phys
 
-    max_err = 0.0
-    one_share = int(THRESHOLD_SHARE * E)
-    cases = (("random_steps", phys_random, one_share),
-             ("demo_respawn", demo_state(phys_random), 0),
-             ("car_car", overlap_state(phys_random), 0),
-             ("car_ball", car_ball_state(phys_random), one_share),
-             ("walls", wall_state(phys_random), one_share))
-    for name, phys, allowed in cases:
-        ctl, r = controls(), ridx()
-        got = A.arena_step(phys, ctl, r, params, teams)
-        want = ctick.arena_step_reference(phys, ctl, r, consts)
-        torch.cuda.synchronize()
-        if name == "demo_respawn":
-            respawned = ~got.arena.cars.is_demoed[:, 0]
-            print(f"[{name}] car 0 respawned in {int(respawned.sum())} of "
-                  f"{E} arenas")
-            if not bool(respawned.any()):
-                fail("no car respawned in the demo phase")
-        if name == "car_car":
-            print(f"[{name}] bumps {int(got.arena.step_bump.sum())}, "
-                  f"demos {int(got.arena.step_demo.sum())}")
-            if not bool(got.arena.step_demo.any()):
-                fail("the car-car phase drove no demo")
-        if name == "car_ball":
-            moved = got.arena.ball.vel.norm(dim=-1) > 0
-            print(f"[{name}] the resting ball was hit in {int(moved.sum())} "
-                  f"of {E} arenas")
-            if not bool(moved.any()):
-                fail("the car-ball phase drove no touch")
-        if name == "walls":
-            along = (torch.arange(E, device=dev) % 2)[:, None]
-            bounced = (phys.arena.ball.vel.gather(1, along)
-                       * got.arena.ball.vel.gather(1, along) < 0)
-            walled = got.arena.cars.world_contact_normal[:, 1, 0].abs() > 0.5
-            print(f"[{name}] the ball bounced off a wall in "
-                  f"{int(bounced.sum())} arenas, car 1 touched a side wall "
-                  f"in {int(walled.sum())}, goals "
-                  f"{int(got.arena.goal_scored.sum())}")
-            if not (bool(bounced.any()) and bool(walled.any())):
-                fail("the wall phase drove no wall contact")
-        max_err = max(max_err, compare(name, got, want, allowed))
+    # -- full fidelity ------------------------------------------------------
+    def _still_ball(self, phys):
+        import torch
+        phys = self.copy(phys)
+        phys.arena.ball.ang_vel = torch.zeros_like(phys.arena.ball.ang_vel)
+        return phys
 
-    # 3. the main path --------------------------------------------------
+    def fillet_ball(self, phys):
+        """The ball flies into the floor fillet of a side wall (tests/
+        test_ctick.py:258, moved a step closer): it must bounce up."""
+        import torch
+        phys = self._still_ball(phys)
+        ball = phys.arena.ball
+        u = self.u
+        sx = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        ball.pos = torch.stack([sx * u(3960, 3980), u(-3000, 3000),
+                                u(120, 130)], -1)
+        ball.vel = torch.stack([sx * u(800, 1000), u(-100, 100),
+                                u(-350, -250)], -1)
+        return phys
+
+    def wall_drive(self, phys):
+        """Car 1 drives up a back wall on its wheels (y = +-5103, beside
+        the goal, 450-900 uu up, facing up the wall), throttle on."""
+        import torch
+        phys = self.copy(phys)
+        cars = phys.arena.cars
+        u = self.u
+        sx = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        sy = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        z = torch.zeros_like(sy)
+        cars.pos[:, 1] = torch.stack([sx * u(1300, 2500), sy * 5103.0,
+                                      u(450, 900)], -1)
+        cars.vel[:, 1] = torch.stack([u(-200, 200), z, u(200, 600)], -1)
+        cars.ang_vel[:, 1] = 0.0
+        # columns forward, right, up: forward up the wall, up = -y on the
+        # y+ wall and +y on the y- wall
+        cars.rot[:, 1] = torch.stack([
+            torch.stack([z, -sy, z], -1),
+            torch.stack([z, z, -sy], -1),
+            torch.stack([z + 1.0, z, z], -1)], -2)
+        cars.is_demoed[:, 1] = False
+        return phys
+
+    def box_wall(self, phys, half_width):
+        """Car 2 flies side first into a back wall beside the goal, its
+        hitbox (``half_width`` to either side) 5-25 uu from the wall at
+        1000-1500 uu/s, with no world contact normal recorded yet."""
+        import torch
+        phys = self.copy(phys)
+        cars = phys.arena.cars
+        u = self.u
+        sx = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        sy = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        z = torch.zeros_like(sy)
+        cars.pos[:, 2] = torch.stack(
+            [sx * u(1300, 2500), sy * (5120.0 - half_width - u(5, 25)),
+             u(300, 1000)], -1)
+        cars.vel[:, 2] = torch.stack([z, sy * u(1000, 1500), z], -1)
+        cars.ang_vel[:, 2] = 0.0
+        cars.rot[:, 2] = torch.eye(3, device=self.dev)
+        cars.world_contact_normal[:, 2] = 0.0
+        cars.is_demoed[:, 2] = False
+        return phys
+
+    def corner_ball(self, phys):
+        """The ball flies fast and low into a corner where a side wall
+        meets a corner wall, at the seam of their floor fillets, where
+        the ball sees more than 8 live facet candidates."""
+        import torch
+        phys = self._still_ball(phys)
+        ball = phys.arena.ball
+        u = self.u
+        sx = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        sy = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        ball.pos = torch.stack([sx * u(3920, 3960), sy * u(3830, 3900),
+                                u(100, 140)], -1)
+        ball.vel = torch.stack([sx * u(1500, 2500), sy * u(1500, 2500),
+                                u(-600, -300)], -1)
+        return phys
+
+    def goal_mouth(self, phys):
+        """The ball flies into the goal: onto the back net (even arenas)
+        or into the crossbar (odd), at both ends."""
+        import torch
+        phys = self._still_ball(phys)
+        ball = phys.arena.ball
+        u = self.u
+        sy = torch.where(u(0, 1) > 0.5, 1.0, -1.0)
+        net = torch.arange(E, device=self.dev) % 2 == 0
+        ball.pos = torch.stack([
+            torch.where(net, u(-700, 700), u(-600, 600)),
+            sy * torch.where(net, u(5830, 5860), u(5040, 5070)),
+            torch.where(net, u(150, 500), u(690, 720))], -1)
+        ball.vel = torch.stack([u(-50, 50), sy * u(1000, 1500),
+                                u(-100, 0)], -1)
+        return phys
+
+    def car_on_ball(self, phys):
+        """Car 0 dropped onto the resting ball (tests/test_ctick.py:305):
+        its wheel rays stand on the ball."""
+        import torch
+        phys = self._still_ball(phys)
+        cars, ball = phys.arena.cars, phys.arena.ball
+        u = self.u
+        bx, by = u(-3000, 3000), u(-4000, 4000)
+        ball.pos = torch.stack([bx, by, torch.full_like(bx, 93.15)], -1)
+        ball.vel = torch.zeros_like(ball.vel)
+        # the rear wheels' rays reach the ball's top from 195-198 uu
+        cars.pos[:, 0] = torch.stack([bx + u(-4, 4), by + u(-4, 4),
+                                      u(195, 198)], -1)
+        cars.vel[:, 0] = 0.0
+        cars.ang_vel[:, 0] = 0.0
+        cars.rot[:, 0] = torch.eye(3, device=self.dev)
+        cars.is_demoed[:, 0] = False
+        return phys
+
+    def car_on_car(self, phys):
+        """Car 1 dropped onto car 0's roof, 70-80 uu up: its wheel rays
+        reach car 0's box (the roof at 55.8 uu) but not the floor.  Car 1
+        is pitched and rolled by 3-7 degrees: two level boxes tie the
+        separating-axis test between their up axes, and the last ulp then
+        picks the reference face."""
+        import torch
+        from reinforcement_learning_torch import maths
+        phys = self.copy(phys)
+        cars = phys.arena.cars
+        u = self.u
+
+        def tilt():
+            return torch.where(u(0, 1) > 0.5, 1.0, -1.0) * u(0.05, 0.12)
+        x0, y0, yaw = u(-3000, 3000), u(-4000, 4000), u(-3, 3)
+        cars.pos[:, 0] = torch.stack([x0, y0, torch.full_like(x0, 17.0)], -1)
+        cars.pos[:, 1] = torch.stack([x0 + u(-8, 8), y0 + u(-8, 8),
+                                      u(70, 80)], -1)
+        cars.rot[:, 0] = maths.euler_to_rotmat(yaw)
+        cars.rot[:, 1] = maths.euler_to_rotmat(yaw + u(-0.3, 0.3), tilt(),
+                                               tilt())
+        for c in (0, 1):
+            cars.vel[:, c] = 0.0
+            cars.ang_vel[:, c] = 0.0
+            cars.is_demoed[:, c] = False
+        return phys
+
+
+class LiveCandidates:
+    """While open, records the facet-arena contact candidates that the
+    plain version's 4-slot retention (``ctick.keep_diverse4``) sees live:
+    per arena, the most at any tick for the ball (``ball``, (E,)) and for
+    each car (``cars``, (C, E)); None where no retention ran."""
+
+    def __enter__(self):
+        import torch
+        from reinforcement_learning_torch.ops import ctick
+        self.ball = self.cars = None
+        self._keep = ctick.keep_diverse4
+
+        def spy(d, pays, px, py, pz):
+            n = (d < 1e30).sum(0)
+            if n.dim() == 1:
+                self.ball = n if self.ball is None else torch.maximum(
+                    self.ball, n)
+            else:
+                self.cars = n if self.cars is None else torch.maximum(
+                    self.cars, n)
+            return self._keep(d, pays, px, py, pz)
+        ctick.keep_diverse4 = spy
+        return self
+
+    def __exit__(self, *exc):
+        from reinforcement_learning_torch.ops import ctick
+        ctick.keep_diverse4 = self._keep
+
+
+def kernel_vs_plain(name, phys, params, teams, ctl, r, allowed, check=None):
+    """One env step of the kernel and of the plain version on the card from
+    ``phys``; ``check(phys, got, live)`` shows the state's contact
+    happened, ``live`` being the plain step's ``LiveCandidates``.  Returns
+    the worst float deviation."""
+    import torch
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.ops import ctick
+    consts = A._consts(params, tuple(int(t) for t in teams))
+    got = A.arena_step(phys, ctl, r, params, teams)
+    with LiveCandidates() as live:
+        want = ctick.arena_step_reference(phys, ctl, r, consts)
+    torch.cuda.synchronize()
+    if check is not None:
+        check(phys, got, live)
+    return compare(name, got, want, allowed)
+
+
+def drive_path(label, env, params, card, gen, T_steps):
+    """Collect ``T_steps`` env steps of 1024 x 2v2 on ``env`` through the
+    normal entry points, with the kernel's launch count set to 0 just
+    before and read just after; check the trajectory; hold the kernel to
+    the plain version on the end state, count the work its inputs need and
+    time the parts.  Returns the path's ``kernels`` entry."""
+    import torch
+    from reinforcement_learning_torch.learn.ppo import PPOConfig
+    from reinforcement_learning_torch.learn.trainer import (Trainer,
+                                                            TrainerConfig)
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.ops import ctick, opcount
+    teams = tuple(int(t) for t in env.teams_np)
+    consts = A._consts(params, teams)
+    lib = A._library()
     ppo_cfg = PPOConfig(policy_layers=(384, 384, 384),
                         critic_layers=(384, 384, 384),
                         shared_head_layers=(384, 384), half_precision=True)
@@ -366,75 +516,81 @@ def main():
                                                   random_seed=SEED))
     if trainer.steps_per_itr != T:
         fail(f"steps_per_itr {trainer.steps_per_itr} != {T}")
-    print(f"[main] params {trainer.learner.param_counts()}")
+    print(f"[{label}] params {trainer.learner.param_counts()}, arena "
+          f"use_mesh={params.use_mesh} "
+          f"dynamic_wheel_rays={params.dynamic_wheel_rays}")
     tstate = trainer.init(SEED)
-    tstate, _ = trainer.collect(tstate, T)            # warm-up
+    tstate, _ = trainer.collect(tstate, T_steps)            # warm-up
     torch.cuda.synchronize()
     A.arena_step.launches = 0
     t0 = time.perf_counter()
-    tstate, traj = trainer.collect(tstate, T)
+    tstate, traj = trainer.collect(tstate, T_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = A.arena_step.launches
-    if launches != T:
-        fail(f"arena_step launched {launches} times in {T} env steps")
+    if launches != T_steps:
+        fail(f"{label}: arena_step launched {launches} times in {T_steps} "
+             "env steps")
     P = CARS
-    shapes = dict(obs=(T, E, P, env.obs_size), mask=(T, E, P, 90),
-                  action=(T, E, P), old_logp=(T, E, P), reward=(T, E, P),
-                  terminal=(T, E), final_obs=(T, E, P, env.obs_size),
-                  goal=(T, E), touch=(T, E, P))
+    shapes = dict(obs=(T_steps, E, P, env.obs_size),
+                  mask=(T_steps, E, P, 90), action=(T_steps, E, P),
+                  old_logp=(T_steps, E, P), reward=(T_steps, E, P),
+                  terminal=(T_steps, E), final_obs=(T_steps, E, P,
+                                                    env.obs_size),
+                  goal=(T_steps, E), touch=(T_steps, E, P))
     for k, shp in shapes.items():
         v = traj[k]
         if tuple(v.shape) != shp:
-            fail(f"traj[{k!r}] shape {tuple(v.shape)} != {shp}")
+            fail(f"{label}: traj[{k!r}] shape {tuple(v.shape)} != {shp}")
         if v.dtype.is_floating_point and not bool(torch.isfinite(v).all()):
-            fail(f"traj[{k!r}] holds NaN or inf")
+            fail(f"{label}: traj[{k!r}] holds NaN or inf")
     chosen_ok = torch.gather(traj["mask"], -1, traj["action"][..., None])
     if not bool(chosen_ok.all()):
-        fail("an action outside its mask was sampled")
+        fail(f"{label}: an action outside its mask was sampled")
     if not bool((traj["old_logp"] <= 0).all()):
-        fail("log-probabilities above 0")
-    steps_per_s = T * E * P / wall
-    print(f"[main] collect: {T} env steps x {E} arenas x {P} players in "
-          f"{wall:.3f} s = {steps_per_s:.0f} player-steps/s; "
-          f"launches {launches}; goals {int(traj['goal'].sum())}, "
-          f"touches {int(traj['touch'].sum())}")
+        fail(f"{label}: log-probabilities above 0")
+    steps_per_s = T_steps * E * P / wall
+    print(f"[{label}] collect: {T_steps} env steps x {E} arenas x {P} "
+          f"players in {wall:.3f} s = {steps_per_s:.0f} player-steps/s; "
+          f"launches {launches}; goals {int(traj['goal'].sum())}, touches "
+          f"{int(traj['touch'].sum())}")
 
     # kernel vs plain on the state the collection ends in; the plain run
     # counts the work these inputs need
     phys = tstate.env_states.phys
     ctl = env.action_parser.parse(traj["action"][-1])
-    r = ridx()
+    r = torch.randint(0, 4, (E, CARS), generator=gen,
+                      device=phys.cars.pos.device, dtype=torch.int32)
     work = opcount.step_work(phys, ctl, r, consts)
     got = A.arena_step(phys, ctl, r, params, teams)
     torch.cuda.synchronize()
-    max_err = max(max_err, compare("main_state", got, work.out, one_share))
-    print("[work] fp32 ops per env step, needed / branch-free: "
+    err = compare(f"{label}_end_state", got, work.out, 1)
+    print(f"[{label}] fp32 ops per env step, needed / branch-free: "
           + json.dumps({k: [float(f"{n:.4g}"), float(f"{b:.4g}")]
                         for k, (n, b) in work.by_gate.items()}))
 
-    # kernel time alone, on the main path's state and shapes
+    # kernel time alone, on the path's end state and shapes
     f, i, u = A._pack(phys)
     ctl_k = ctl.permute(2, 1, 0).contiguous()
     r_k = r.transpose(0, 1).contiguous()
     outs = [torch.empty_like(x) for x in (f, i, u)]
-    prm = A.pack_params(params, tuple(int(t) for t in teams))
+    prm = A.pack_params(params, teams)
     stream = torch.cuda.current_stream().cuda_stream
 
     def raw():
-        err = lib.arena_step_launch(
+        e = lib.arena_step_launch(
             prm.ctypes.data, prm.nbytes, f.data_ptr(), i.data_ptr(),
             u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
             outs[2].data_ptr(), ctl_k.data_ptr(), r_k.data_ptr(), E, CARS,
             8, 7, stream)
-        if err:
-            fail(f"kernel launch error {err}")
-    kernel_ms = cuda_ms(raw, reps=20, warmup=3)
-    wrapper_ms = cuda_ms(lambda: A._launch(lib, phys, ctl, r, params,
-                                           tuple(int(t) for t in teams), 8,
-                                           7, stream), reps=10)
+        if e:
+            fail(f"kernel launch error {e}")
+    kernel_ms = cuda_ms(raw, reps=10, warmup=2)
+    wrapper_ms = cuda_ms(lambda: A._launch(lib, phys, ctl, r, params, teams,
+                                           8, 7, stream), reps=5)
     plain_ms = cuda_ms(lambda: ctick.arena_step_reference(phys, ctl, r,
-                                                          consts), reps=2)
+                                                          consts),
+                       reps=1, warmup=0)
     flat_obs = tstate.obs.reshape(E * P, -1)
     flat_mask = tstate.masks.reshape(E * P, -1)
     policy_ms = cuda_ms(lambda: trainer.learner.sample_actions(
@@ -445,8 +601,8 @@ def main():
         flat_obs, flat_mask, generator=gen))[1]
     env_calls = opcount.count_ops(lambda: env.step(tstate.env_states,
                                            traj["action"][-1]))[1]
-    print(f"[time] per env step: collect {wall / T * 1e3:.3f} ms (host "
-          f"clock); policy sample {policy_ms:.3f} ms, env.step "
+    print(f"[{label}] per env step: collect {wall / T_steps * 1e3:.3f} ms "
+          f"(host clock); policy sample {policy_ms:.3f} ms, env.step "
           f"{env_ms:.3f} ms of which arena_step {wrapper_ms:.3f} ms "
           f"(kernel {kernel_ms:.3f} ms) (CUDA events); tensor ops "
           f"dispatched: policy sample {policy_calls}, env.step {env_calls}")
@@ -457,23 +613,268 @@ def main():
     ops_ms = ops / PEAK_FP32_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[time] kernel {kernel_ms:.4f} ms/env step (E={E}, C={CARS}); "
-          f"with pack/unpack {wrapper_ms:.4f} ms; plain version "
+    print(f"[{label}] kernel {kernel_ms:.4f} ms/env step (E={E}, "
+          f"C={CARS}); with pack/unpack {wrapper_ms:.4f} ms; plain version "
           f"{plain_ms:.2f} ms; bound {bound_ms:.5f} ms by {bound_by} "
-          f"({nbytes} bytes -> {bytes_ms:.5f} ms, {ops:.4g} fp32 ops "
-          f"these inputs need -> {ops_ms:.5f} ms; the branch-free plain "
-          f"version runs {work.ops_branch_free:.4g}); card {card}")
+          f"({nbytes} bytes -> {bytes_ms:.5f} ms, {ops:.4g} fp32 ops these "
+          f"inputs need -> {ops_ms:.5f} ms; the branch-free plain version "
+          f"runs {work.ops_branch_free:.4g}); card {card}")
+    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "end_err": err}
 
-    # 4. small collection on the card vs the plain path on the CPU ------
-    small_collect_agrees(dev, params)
 
-    kernels = [{
-        "name": "arena_step", "route": "cuda",
-        "source": "reinforcement_learning_torch/csrc/arena_step.cu",
-        "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this script needs a card")
+    sys.path.insert(0, ROOT)
+    from reinforcement_learning_torch.envs.env import (EnvConfig,
+                                                       RocketLeagueEnv)
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.ops import ctick
+    from reinforcement_learning_torch.physics.step import ArenaParams
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi: no output"
+    print(card)
+    dev = torch.device("cuda")
+    t_all = time.perf_counter()
+
+    # 1. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    so, log = A.build(verbose=True)
+    release = subprocess.run([A.nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    release = [ln for ln in release.splitlines() if "release" in ln]
+    print(f"[build] {so.name} in {time.perf_counter() - t0:.1f} s by nvcc "
+          f"{release[0] if release else '(release unknown)'}")
+    for line in log.splitlines():
+        if any(w in line for w in ("entry function", "registers",
+                                   "spill")):
+            print(f"[build] {line.strip()}")
+    A._library()
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    S = States(dev, gen)
+
+    def controls():
+        analog = torch.rand(E, CARS, 5, generator=gen, device=dev) * 2 - 1
+        buttons = (torch.rand(E, CARS, 3, generator=gen, device=dev)
+                   > 0.5).float()
+        return torch.cat([analog, buttons], -1)
+
+    def ridx():
+        return torch.randint(0, 4, (E, CARS), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    one = int(THRESHOLD_SHARE * E)
+    err = {"plane": 0.0, "full": 0.0}
+
+    # 2. plane arena: kernel vs plain ------------------------------------
+    plane = ArenaParams(num_cars=CARS, use_mesh=False,
+                        dynamic_wheel_rays=False)
+    penv = RocketLeagueEnv(EnvConfig(num_envs=E, team_size=2, arena=plane,
+                                     device="cuda"))
+    teams = penv.teams_np
+    state, _, _ = penv.reset(SEED)
+    for _ in range(6):
+        act = torch.randint(0, penv.num_actions, (E, CARS), generator=gen,
+                            device=dev)
+        state, _ = penv.step(state, act)
+    phys_random = state.phys
+
+    def respawned(phys, got, live):
+        n = int((~got.arena.cars.is_demoed[:, 0]).sum())
+        print(f"[demo_respawn] car 0 respawned in {n} of {E} arenas")
+        if n == 0:
+            fail("no car respawned in the demo phase")
+
+    def demoed(phys, got, live):
+        print(f"[car_car] bumps {int(got.arena.step_bump.sum())}, demos "
+              f"{int(got.arena.step_demo.sum())}")
+        if not bool(got.arena.step_demo.any()):
+            fail("the car-car phase drove no demo")
+
+    def ball_hit(phys, got, live):
+        moved = int((got.arena.ball.vel.norm(dim=-1) > 0).sum())
+        print(f"[car_ball] the resting ball was hit in {moved} of {E} "
+              "arenas")
+        if moved == 0:
+            fail("the car-ball phase drove no touch")
+
+    def walled(phys, got, live):
+        along = (torch.arange(E, device=dev) % 2)[:, None]
+        bounced = int((phys.arena.ball.vel.gather(1, along)
+                       * got.arena.ball.vel.gather(1, along) < 0).sum())
+        hit = int((got.arena.cars.world_contact_normal[:, 1, 0].abs()
+                   > 0.5).sum())
+        print(f"[walls] the ball bounced off a wall in {bounced} arenas, "
+              f"car 1 touched a side wall in {hit}, goals "
+              f"{int(got.arena.goal_scored.sum())}")
+        if not (bounced and hit):
+            fail("the wall phase drove no wall contact")
+
+    for name, phys, allowed, check in (
+            ("random_steps", phys_random, one, None),
+            ("demo_respawn", S.demo(phys_random), 0, respawned),
+            ("car_car", S.overlap(phys_random), 0, demoed),
+            ("car_ball", S.car_ball(phys_random), one, ball_hit),
+            ("walls", S.walls(phys_random), one, walled)):
+        err["plane"] = max(err["plane"], kernel_vs_plain(
+            name, phys, plane, teams, controls(), ridx(), allowed, check))
+
+    # 3. full fidelity: kernel vs plain ----------------------------------
+    fenv = RocketLeagueEnv(EnvConfig(num_envs=E, team_size=2,
+                                     device="cuda"))
+    full = fenv.params
+    if not (full.use_mesh and full.dynamic_wheel_rays):
+        fail("the default EnvConfig is not full fidelity")
+    fconsts = A._consts(full, tuple(int(t) for t in teams))
+    state, _, _ = fenv.reset(SEED + 1)
+    for _ in range(6):
+        act = torch.randint(0, fenv.num_actions, (E, CARS), generator=gen,
+                            device=dev)
+        state, _ = fenv.step(state, act)
+    phys_full = state.phys
+
+    def fillet_bounced(phys, got, live):
+        # falling at least 28 uu above the floor, the ball can turn both
+        # up and back only off the fillet's curved facets: the floor does
+        # not reach it and the side wall's plane has no z component
+        vin, vout = phys.arena.ball.vel, got.arena.ball.vel
+        up_back = (vout[:, 2] > 0) & (vout[:, 0] * vin[:, 0] < 0)
+        touching = live.ball > 0
+        print(f"[fillet_ball] the ball bounced up and back in "
+              f"{int(up_back.sum())} of {E} arenas; a facet slot occupied "
+              f"in the step: {int(touching.sum())}")
+        if min(int(up_back.sum()), int(touching.sum())) < E // 2:
+            fail("the fillet phase drove no fillet bounce")
+
+    def ground_of(phys, car):
+        """(4, E): the body each wheel ray of ``car`` stands on, by the
+        plain version's raycast of ``phys`` (-1 world or none, -2 the
+        ball, j car j)."""
+        from reinforcement_learning_torch.ops import cvec, pack
+        st = pack.to_components(phys)
+        iw = cvec.inv_inertia_world(st["rot"], fconsts.inv_i_local)
+        rc = ctick._wheel_raycasts(fconsts, st, iw)
+        return torch.stack(rc["ground_idx"])[:, car]
+
+    def on_wall(phys, got, live):
+        # no true plane has a y component: only the facet raycast holds
+        # the wheels on a back wall
+        cars = got.arena.cars
+        wc = cars.wheels_with_contact[:, 1].all(-1)
+        high = (cars.pos[:, 1, 1].abs() > 4950) & (cars.pos[:, 1, 2] > 300)
+        print(f"[wall_drive] car 1 on all 4 wheels high on a back wall in "
+              f"{int((wc & high).sum())} of {E} arenas")
+        if int((wc & high).sum()) < E // 2:
+            fail("the wall-drive phase drove no wall ride")
+
+    def box_walled(phys, got, live):
+        # the world contact normal is the mean of the live rows' normals;
+        # no true plane has a y component, so one pointing off the back
+        # wall came from the facet box manifold
+        sy = torch.sign(phys.arena.cars.pos[:, 2, 1])
+        n = got.arena.cars.world_contact_normal[:, 2]
+        hit = int((n[:, 1] * sy < -0.5).sum())
+        slots = int((live.cars[2] > 0).sum())
+        print(f"[box_wall] car 2's hitbox met a back wall's facets in {hit} "
+              f"of {E} arenas; a facet slot occupied in the step: {slots}")
+        if min(hit, slots) < E // 2:
+            fail("the box-wall phase drove no facet box contact")
+
+    def overflowed(phys, got, live):
+        # the kernel's retention replays a buffer of 8 live candidates and
+        # enumerates them again when there are more
+        vin, vout = phys.arena.ball.vel, got.arena.ball.vel
+        back = int(((vout[:, :2] * vin[:, :2]).sum(-1) < 0).sum())
+        slots = int((live.ball > 0).sum())
+        many = int((live.ball > 8).sum())
+        print(f"[corner_ball] the ball came back out of the corner in {back} "
+              f"of {E} arenas; a facet slot occupied in the step: {slots}; "
+              f"more than 8 live facet candidates at a tick: {many}")
+        if slots < E // 2 or many < E // 8:
+            fail("the corner phase drove too few corner contacts with more "
+                 "than 8 live candidates")
+
+    def netted(phys, got, live):
+        # no true plane has a y component: only the facets (back net,
+        # back wall, crossbar) turn the ball back along y
+        back = phys.arena.ball.vel[:, 1] * got.arena.ball.vel[:, 1] < 0
+        touching = live.ball > 0
+        print(f"[goal_mouth] the ball came back off the net or crossbar in "
+              f"{int(back.sum())} of {E} arenas; a facet slot occupied in "
+              f"the step: {int(touching.sum())}; goals "
+              f"{int(got.arena.goal_scored.sum())}")
+        if min(int(back.sum()), int(touching.sum())) < E // 2:
+            fail("the goal-mouth phase drove no net or crossbar contact")
+
+    def on_ball(phys, got, live):
+        cars = got.arena.cars
+        # 200 uu up, only the ball is within the wheel rays' reach
+        stand = cars.wheels_with_contact[:, 0].any(-1) & (cars.pos[:, 0, 2]
+                                                          > 150)
+        on = (ground_of(phys, 0) == -2).any(0)
+        print(f"[car_on_ball] car 0's wheels stand on the ball in "
+              f"{int(stand.sum())} of {E} arenas; a wheel ray's ground body "
+              f"is the ball in {int(on.sum())}")
+        if min(int(stand.sum()), int(on.sum())) < E // 2:
+            fail("the car-on-ball phase drove no wheel on the ball")
+
+    def on_roof(phys, got, live):
+        cars = got.arena.cars
+        # 75-85 uu up, only car 0's roof is within the wheel rays' reach
+        stand = cars.wheels_with_contact[:, 1].any(-1) & (cars.pos[:, 1, 2]
+                                                          > 60)
+        on = (ground_of(phys, 1) == 0).any(0)
+        print(f"[car_on_car] car 1's wheels stand on car 0's roof in "
+              f"{int(stand.sum())} of {E} arenas; a wheel ray's ground body "
+              f"is car 0 in {int(on.sum())}")
+        if min(int(stand.sum()), int(on.sum())) < E // 2:
+            fail("the car-on-car phase drove no wheel on a car")
+
+    ctl_still = torch.zeros(E, CARS, 8, device=dev)
+    ctl_drive = ctl_still.clone()
+    ctl_drive[:, 1, 0] = 1.0
+    for name, phys, ctl, check in (
+            ("fillet_ball", S.fillet_ball(phys_full), controls(),
+             fillet_bounced),
+            ("wall_drive", S.wall_drive(phys_full), ctl_drive, on_wall),
+            ("box_wall", S.box_wall(phys_full, fconsts.half_extents[1]),
+             ctl_still, box_walled),
+            ("corner_ball", S.corner_ball(phys_full), controls(),
+             overflowed),
+            ("goal_mouth", S.goal_mouth(phys_full), controls(), netted),
+            ("car_on_ball", S.car_on_ball(phys_full), ctl_still, on_ball),
+            ("car_on_car", S.car_on_car(phys_full), ctl_still, on_roof)):
+        err["full"] = max(err["full"], kernel_vs_plain(
+            name, phys, full, teams, ctl, ridx(), one, check))
+
+    # 4. the paths --------------------------------------------------------
+    entries = {}
+    for label, env, params in (("plane", penv, plane), ("full", fenv, full)):
+        entries[label] = drive_path(label, env, params, card, gen, T)
+        err[label] = max(err[label], entries[label].pop("end_err"))
+
+    # 5. small collection on the card vs the plain path on the CPU -------
+    small_collect_agrees(dev, full)
+
+    kernels = []
+    for label, what in (("plane", "plane arena"),
+                        ("full", "full fidelity: facet arena, dynamic "
+                                 "wheel rays")):
+        kernels.append({
+            "name": f"arena_step ({what})", "route": "cuda",
+            "source": "reinforcement_learning_torch/csrc/arena_step.cu",
+            "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
+            **entries[label], "max_abs_err": err[label],
+            "library_ms": None})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

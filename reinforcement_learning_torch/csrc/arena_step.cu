@@ -1,5 +1,6 @@
 // arena_step.cu: one env step (tick_skip physics ticks) of every arena in one
-// launch, on the analytic-plane soccar arena.
+// launch, on the analytic-plane soccar arena or at full fidelity (the facet
+// arena of facets.cuh plus the 4 true planes, and dynamic wheel rays).
 //
 // Replaces the TPU kernel `pallas_arena_step` (reinforcement_learning_tpu/
 // ops/pallas_step.py:85, the pl.pallas_call at :126), whose body is
@@ -17,21 +18,24 @@
 // per car.
 //
 // What bounds it: arithmetic.  One env step of 1024 2v2 arenas in play needs
-// about 2.4e8 fp32 operations (ops/opcount.py counts them on the data: the
-// wheel rays, state machines and pads of every car and the separating-axis
-// test of every car pair each tick, the contact solvers only where there is
-// a contact) against ~3.6 MB of device memory read and written once, so on
-// an H100 the operations bound it (~0.004 ms at 67 TFLOP/s, against ~0.001
-// ms for the bytes).  The per-arena state (~3 KB per 2v2 arena, and a
-// tick-start copy) lives in registers and local memory.
+// about 2.4e8 fp32 operations on the plane arena and 2.6e8 at full fidelity
+// (ops/opcount.py counts them on the data: the wheel rays, state machines
+// and pads of every car and the separating-axis test of every car pair each
+// tick; the contact solvers only where there is a contact; each facet query
+// only where one of its rows is live) against ~3.6 MB of device memory read
+// and written once, so on an H100 the operations bound it (~0.004 ms for
+// both at 67 TFLOP/s, against ~0.001 ms for the bytes).  The per-arena
+// state (~3 KB per 2v2 arena, and a tick-start copy) lives in registers
+// and local memory.
 //
 // What the design leaves on the table: 1024 arenas are 1024 threads, 8
 // blocks of 128, so at most 8 of the 132 SMs have work, each with 4 warps
-// of one-thread-per-arena serial code; the kernel runs some 500x above the
-// bound (PERF.md).  It also runs the box manifold and the 10-pass pair
-// solver for every car pair, in contact or not: about 8e8 operations per
-// env step the data does not need.  A later version skips those, and
-// spreads an arena over a warp (a lane per car, pair or plane) or gives
+// of one-thread-per-arena serial code; the kernel runs several hundred
+// times (plane) and over 2000x (full fidelity) above the bound (PERF.md).
+// It also runs the box manifold and the 10-pass pair solver for every car
+// pair, and the facet queries of every body and the 8-row joint PGS of
+// every car, in contact or not.  A later version skips those, and spreads
+// an arena over a warp (a lane per car, pair, plane or facet band) or gives
 // each car a thread.
 //
 // Numerics: built with -fmad=false, so no a*b+c is contracted into an FMA
@@ -48,6 +52,7 @@
 #include <stdint.h>
 
 #include "cvec.cuh"
+#include "facets.cuh"
 
 namespace {
 
@@ -142,6 +147,11 @@ constexpr float FUDGE2 = 1.0e-5f;
 constexpr int MAXC = 8;  // Params.teams slots
 constexpr int NPADS = 34;
 constexpr int NPLANES = 15;
+constexpr int NTRUE_PLANES = 4;
+constexpr float ARENA_HEIGHT = 2048.0f;
+// floor / ceiling grid clip: -fillet inset + 1 uu (facet_arena.sheet_clip_ok)
+__device__ const float SHEET_CLIP[2] = {(float)(-152.0 + 1.0),
+                                        (float)(-256.0 + 1.0)};
 constexpr int NRESPAWN = 4;
 constexpr int WALL_YN = 4, WALL_YP = 5, GOAL_XN = 10, GOAL_XP = 11,
               GOAL_CEIL = 12, NET_YN = 13, NET_YP = 14;
@@ -186,6 +196,13 @@ struct Params {
   float pad_is_big[NPADS];
   float respawn_table[NRESPAWN][3];
   Curve curves[NCURVES];
+  // full fidelity: the facet arena (use_mesh) and dynamic wheel rays, as
+  // 0/1; values folded in double precision like the plain version's
+  float use_mesh, dynamic_rays;
+  float erp2_over_dt, ball_radius_sq, box_dist_m;
+  float he_core[3];                 // half extents - mesh margin
+  float core_corners_local[8][3];   // offset + signs * he_core
+  facets::Tables facets;
 };
 
 // ---------------------------------------------------------------------------
@@ -462,8 +479,28 @@ __device__ __forceinline__ float plane_dist(const float* pl, V3 p) {
   return pl[0] * p.x + pl[1] * p.y + pl[2] * p.z + pl[3];
 }
 
+__device__ __forceinline__ float comp(V3 v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : v.z);
+}
+
 __device__ __forceinline__ V3 plane_n(const float* pl) {
   return v3(pl[0], pl[1], pl[2]);
+}
+
+// The full-fidelity flags.  -DARENA_STEP_PLANE_ONLY compiles their branches
+// out: a measurement build of what carrying them costs the plane arena
+// (kernel_variants.py).
+#ifdef ARENA_STEP_PLANE_ONLY
+#define FLAG_ON(x) false
+#else
+#define FLAG_ON(x) ((x) != 0.f)
+#endif
+
+// Planes in the world: in mesh mode only the 4 true static planes, which
+// lead the table (floor, ceiling, the two side walls); the facet arena
+// covers the rest.
+__device__ __forceinline__ int world_planes(const Params& P) {
+  return FLAG_ON(P.use_mesh) ? NTRUE_PLANES : NPLANES;
 }
 
 __device__ void raycast(const Params& P, V3 start, V3 dir, float max_len,
@@ -473,7 +510,7 @@ __device__ void raycast(const Params& P, V3 start, V3 dir, float max_len,
   const float big = 1e30f;
   float t_min = big;
   n = vzero();
-  for (int p = 0; p < NPLANES; ++p) {
+  for (int p = 0; p < world_planes(P); ++p) {
     const float* pl = P.planes[p];
     float dist_p = plane_dist(pl, start);
     float denom = -(dir.x * pl[0] + dir.y * pl[1] + dir.z * pl[2]);
@@ -535,24 +572,114 @@ __device__ void contact_vs_static(V3 vel_bt, V3 ang_vel, V3 r, V3 n,
 // _update_wheels)
 
 struct Rays {
-  bool hit[4];
+  bool hit[4], in_world[4];
+  int gi[4];  // ground body: -1 the world (or none), -2 the ball, j car j
   V3 cp[4], n[4], hard[4];
   float susp_len[4], susp_rel_vel[4], clipped_inv[4], extra_push[4];
 };
 
-__device__ void wheel_raycasts(const Params& P, const Car& k, const M3& iw,
-                               Rays& rc) {
+// Ray vs sphere (ctick._ray_sphere): hit, and t (max_len where none).
+__device__ __forceinline__ bool ray_sphere(V3 o, V3 d, float max_len,
+                                           V3 center, float radius_sq,
+                                           float& t) {
+  V3 oc = o - center;
+  float b = dot(oc, d);
+  float c2 = dot(oc, oc) - radius_sq;
+  float disc = b * b - c2;
+  float tt = -b - sqrtf(fmaxf(disc, 0.f));
+  bool hit = (disc > 0.f) & (c2 > 0.f) & (tt >= 0.f) & (tt <= max_len);
+  t = hit ? tt : max_len;
+  return hit;
+}
+
+// Ray vs oriented box, slab method (ctick._ray_obb): hit, t, entry normal.
+__device__ __forceinline__ bool ray_obb(V3 o, V3 d, float max_len, V3 center,
+                                        const M3& R, const float* he,
+                                        float& t, V3& n) {
+  V3 lo = mat_t_vec(R, o - center);
+  V3 ld = mat_t_vec(R, d);
+  float tmin = -INFINITY, tmax = INFINITY, sign = 0.f;
+  int entry_ax = 0;
+  bool inside_all = true;
+  for (int ax = 0; ax < 3; ++ax) {
+    float l = comp(lo, ax), dd = comp(ld, ax);
+    float safe = fabsf(dd) > 1e-9f ? dd : 1e-9f;
+    float t1 = (-he[ax] - l) / safe;
+    float t2 = (he[ax] - l) / safe;
+    float tmin_ax = fminf(t1, t2), tmax_ax = fmaxf(t1, t2);
+    bool inside = (fabsf(l) <= he[ax]) | (fabsf(dd) > 1e-9f);
+    inside_all = inside_all & inside;
+    if (tmin_ax > tmin) { entry_ax = ax; sign = -signf(dd); }
+    tmin = fmaxf(tmin, tmin_ax);
+    tmax = fminf(tmax, inside ? tmax_ax : INFINITY);
+  }
+  bool hit = (tmax >= tmin) & (tmax >= 0.f) & (tmin >= 0.f) &
+             (tmin <= max_len) & inside_all;
+  n = matvec(R, v3(entry_ax == 0 ? sign : 0.f, entry_ax == 1 ? sign : 0.f,
+                   entry_ax == 2 ? sign : 0.f));
+  t = hit ? tmin : max_len;
+  return hit;
+}
+
+__device__ __forceinline__ V3 box_center(const Params& P, const Car& k) {
+  return k.pos + matvec(k.rot, v3(P.hitbox_offset[0], P.hitbox_offset[1],
+                                  P.hitbox_offset[2]));
+}
+
+// Car c's suspension rays: the world planes, the facet arena in mesh mode,
+// and with dynamic rays the ball and the other live cars' hitboxes.
+template <int NC>
+__device__ void wheel_raycasts(const Params& P, const Arena<NC>& a, int c,
+                               const bool* alive, const M3& iw, Rays& rc) {
+  const Car& k = a.car[c];
+  const bool mesh = FLAG_ON(P.use_mesh), dyn = FLAG_ON(P.dynamic_rays);
   V3 up = up_of(k.rot);
   V3 wheel_dir = -up;
   for (int w = 0; w < 4; ++w) {
     float radius = P.wheel_radii[w];
+    float ray_len = P.ray_len[w];
     V3 hard = k.pos + matvec(k.rot, v3(P.wheel_offsets[w][0],
                                        P.wheel_offsets[w][1],
                                        P.wheel_offsets[w][2]));
     bool hit;
     float dist;
     V3 n;
-    raycast(P, hard, wheel_dir, P.ray_len[w], hit, dist, n);
+    raycast(P, hard, wheel_dir, ray_len, hit, dist, n);
+    if (mesh) {
+      bool fhit;
+      float fdist;
+      V3 fn;
+      facets::raycast(P.facets, hard, wheel_dir, ray_len, fhit, fdist, fn);
+      bool closer = fhit & (fdist < dist);
+      hit = hit | fhit;
+      if (closer) { dist = fdist; n = fn; }
+    }
+    int gi = -1;
+    if (dyn) {
+      float bt;
+      bool bhit = ray_sphere(hard, wheel_dir, ray_len, a.bpos,
+                             P.ball_radius_sq, bt);
+      if (bhit & (bt < dist)) {
+        hit = true;
+        dist = bt;
+        n = normalize((hard + wheel_dir * bt) - a.bpos);
+        gi = -2;
+      }
+      for (int j = 0; j < NC; ++j) {
+        if (j == c || !alive[j]) continue;
+        float ot;
+        V3 on;
+        bool ohit = ray_obb(hard, wheel_dir, ray_len, box_center(P, a.car[j]),
+                            a.car[j].rot, P.half_extents, ot, on);
+        if (ohit & (ot < dist)) {
+          hit = true;
+          dist = ot;
+          n = on;
+          gi = j;
+        }
+      }
+    }
+    bool in_world = hit & (gi == -1);
     V3 cp = hard + wheel_dir * dist;
     float trace_len = dot(hard - cp, up);
     float susp_len = clampf(trace_len - radius, P.sus_min[w], P.sus_max[w]);
@@ -567,13 +694,16 @@ __device__ void wheel_raycasts(const Params& P, const Car& k, const M3& iw,
     float clipped_inv = hit ? (good ? inv : 10.0f) : 1.0f;
     float push_thresh = P.push_thresh[w];
     float delta = (trace_len - push_thresh) * UU_TO_BT;
-    bool needs = hit & (trace_len < push_thresh);
+    // extra pushback only against static geometry (btVehicleRL.cpp:184)
+    bool needs = in_world & (trace_len < push_thresh);
     float pos_err = 0.2f * -delta / P.dt;
     float vel_err = -proj_vel;
     float ang_term = dot(cross(matvec(iw, cross(rel, n)), rel), n);
     float denom0 = P.inv_car_mass + ang_term;
     float imp = fmaxf((pos_err + vel_err) / fmaxf(denom0, 1e-9f), 0.f);
     rc.hit[w] = hit;
+    rc.in_world[w] = in_world;
+    rc.gi[w] = gi;
     rc.cp[w] = cp;
     rc.n[w] = hit ? n : up;
     rc.hard[w] = hard;
@@ -584,9 +714,17 @@ __device__ void wheel_raycasts(const Params& P, const Car& k, const M3& iw,
   }
 }
 
-__device__ void calc_friction_impulses(const Params& P, const Car& k,
-                                       const Rays& rc, const M3& iw,
+// The previous tick's wheel friction impulses of car c.  With dynamic rays
+// a wheel on the ball or another car uses that body's velocity and its mass
+// and inertia (btVehicleRL.cpp:321-387), sampling the ground body's point
+// velocity at the car-relative offset for rolling friction, as the
+// reference does.
+template <int NC>
+__device__ void calc_friction_impulses(const Params& P, const Arena<NC>& a,
+                                       int c, const Rays& rc, const M3* iw,
                                        V3 imps[4]) {
+  const Car& k = a.car[c];
+  const bool dyn_rays = FLAG_ON(P.dynamic_rays);
   V3 up = up_of(k.rot);
   V3 rightv = right_of(k.rot);
   for (int w = 0; w < 4; ++w) {
@@ -598,11 +736,39 @@ __device__ void calc_friction_impulses(const Params& P, const Car& k,
     V3 fwd_dir = normalize(cross(n, axle));
     V3 rel = (rc.cp[w] - k.pos) * UU_TO_BT;
     V3 vel_at = k.vel * UU_TO_BT + cross(k.ang_vel, rel);
-    float rel_vel_side = dot(vel_at, axle);
-    float ang_term = dot(cross(matvec(iw, cross(rel, axle)), rel), axle);
-    float jac = P.inv_car_mass + ang_term + 0.0f;
+    const int gi = rc.gi[w];
+    V3 v2_at = vzero(), v2_quirk = vzero(), r_b = vzero();
+    float g_inv_mass = 0.f;
+    if (dyn_rays) {
+      V3 g_vel = vzero(), g_ang = vzero(), g_pos = vzero();
+      if (gi == -2) {
+        g_vel = a.bvel; g_ang = a.bang; g_pos = a.bpos;
+        g_inv_mass = P.inv_ball_mass;
+      } else if (gi >= 0) {
+        g_vel = a.car[gi].vel; g_ang = a.car[gi].ang_vel;
+        g_pos = a.car[gi].pos;
+        g_inv_mass = P.inv_car_mass;
+      }
+      r_b = (rc.cp[w] - g_pos) * UU_TO_BT;
+      if (gi != -1) {
+        v2_at = g_vel * UU_TO_BT + cross(g_ang, r_b);
+        v2_quirk = g_vel * UU_TO_BT + cross(g_ang, rel);
+      }
+    }
+    float rel_vel_side = dot(vel_at - v2_at, axle);
+    float ang_term = dot(cross(matvec(iw[c], cross(rel, axle)), rel), axle);
+    float jac = P.inv_car_mass + ang_term + g_inv_mass;
+    if (dyn_rays) {
+      V3 rb_cross = cross(r_b, axle);
+      float g_ang_term = 0.f;
+      if (gi == -2)
+        g_ang_term = dot(cross(rb_cross * P.ball_inv_inertia, r_b), axle);
+      else if (gi >= 0)
+        g_ang_term = dot(cross(matvec(iw[gi], rb_cross), r_b), axle);
+      jac = jac + (gi != -1 ? g_ang_term : 0.f);
+    }
     float side = -SIDE_FRICTION_DAMPING * rel_vel_side / fmaxf(jac, 1e-9f);
-    float rel_vel_fwd = dot(vel_at, fwd_dir);
+    float rel_vel_fwd = dot(vel_at - v2_quirk, fwd_dir);
     float brake = k.wc_brake, engine = k.wc_engine;
     float rolling_brake = clampf(-rel_vel_fwd * ROLLING_FRICTION_SCALE_MAGIC,
                                  -brake, brake);
@@ -721,7 +887,9 @@ __device__ V3 update_wheels(const Params& P, Car& k, const Rays& rc,
       k.wc_long[w] = long_f;
     }
   }
-  bool any_world = rc.hit[0] | rc.hit[1] | rc.hit[2] | rc.hit[3];
+  // sticky force only on world contact (not on the ball or a car)
+  bool any_world = rc.in_world[0] | rc.in_world[1] | rc.in_world[2] |
+                   rc.in_world[3];
   V3 sum_n = vzero();
   for (int w = 0; w < 4; ++w) sum_n = sum_n + (rc.hit[w] ? rc.n[w] : vzero());
   V3 up_dir = norm(sum_n) > 1e-9f ? normalize(sum_n) : up;
@@ -1042,6 +1210,336 @@ __device__ void resolve_ball_world(const Params& P, Arena<NC>& a,
   push = navg * (fmaxf(max_depth, 0.f) * SOLVER_ERP2);
 }
 
+// bullet's btPlaneSpace1 first tangent (ctick._plane_space)
+__device__ __forceinline__ V3 plane_space(V3 n) {
+  if (fabsf(n.z) > 0.70710678f) {
+    float k1 = 1.0f / sqrtf(fmaxf(n.y * n.y + n.z * n.z, 1e-12f));
+    return v3(0.f, -n.z * k1, n.y * k1);
+  }
+  float k2 = 1.0f / sqrtf(fmaxf(n.x * n.x + n.y * n.y, 1e-12f));
+  return v3(-n.y * k2, n.x * k2, 0.f);
+}
+
+// ---------------------------------------------------------------------------
+// Full fidelity: 4-slot manifolds against the facet arena, and the joint
+// PGS of a car's 8 world rows (ctick.keep_diverse4, _facet_sphere_manifold,
+// _facet_box_manifold, _pgs_rows, _resolve_car_world_mesh,
+// _resolve_ball_world_mesh)
+
+// Retention of 4 contacts out of the live candidates, in passes: slot 0
+// takes the deepest, each later slot the candidate whose least squared
+// distance to the kept points is largest; ties go to the lowest index.  A
+// pass sees every live candidate once, in any order.  The first pass keeps
+// up to NBUF of them, and the later passes replay that buffer when it holds
+// them all; otherwise the caller enumerates the candidates again.  Without
+// the buffer every pass enumerates them again, and the full-fidelity kernel
+// took half as long again (PERF.md).
+template <int NPAY, int DISP>
+struct Keep4 {
+  static constexpr int NBUF = 8;
+  static constexpr int NONE = 1 << 30;
+  int pass, n_live;
+  int best_idx;
+  float best_key, best_pay[NPAY];
+  bool occ[4];
+  int slot_idx[4];
+  float slot_pay[4][NPAY];
+  int buf_idx[NBUF];
+  float buf_d[NBUF], buf_pay[NBUF][NPAY];
+
+  __device__ void begin(int s) {
+    pass = s;
+    best_idx = NONE;
+    best_key = s == 0 ? 1e30f : -INFINITY;
+    if (s == 0) n_live = 0;
+  }
+  __device__ void visit(int idx, float d, const float* pay) {
+    if (pass == 0) {
+      if (n_live < NBUF) {
+        buf_idx[n_live] = idx;
+        buf_d[n_live] = d;
+        for (int i = 0; i < NPAY; ++i) buf_pay[n_live][i] = pay[i];
+      }
+      ++n_live;
+      if ((d < best_key) | ((d == best_key) & (idx < best_idx))) take(idx, d, pay);
+      return;
+    }
+    for (int q = 0; q < pass; ++q)
+      if (slot_idx[q] == idx) return;
+    float mind = INFINITY;
+    for (int q = 0; q < pass; ++q) {
+      const float* k = slot_pay[q];
+      float dd = (pay[DISP] - k[DISP]) * (pay[DISP] - k[DISP]) +
+                 (pay[DISP + 1] - k[DISP + 1]) * (pay[DISP + 1] - k[DISP + 1]) +
+                 (pay[DISP + 2] - k[DISP + 2]) * (pay[DISP + 2] - k[DISP + 2]);
+      mind = fminf(mind, dd);
+    }
+    if ((mind > best_key) | ((mind == best_key) & (idx < best_idx)))
+      take(idx, mind, pay);
+  }
+  __device__ void take(int idx, float key, const float* pay) {
+    best_idx = idx;
+    best_key = key;
+    for (int i = 0; i < NPAY; ++i) best_pay[i] = pay[i];
+  }
+  // closes the pass; false once a slot stays empty (so do all later ones)
+  __device__ bool end() {
+    occ[pass] = best_idx != NONE;
+    slot_idx[pass] = best_idx;
+    for (int i = 0; i < NPAY; ++i) slot_pay[pass][i] = occ[pass] ? best_pay[i] : 0.f;
+    if (!occ[pass])
+      for (int s = pass + 1; s < 4; ++s) {
+        occ[s] = false;
+        for (int i = 0; i < NPAY; ++i) slot_pay[s][i] = 0.f;
+      }
+    return occ[pass];
+  }
+  __device__ bool buffered() const { return n_live <= NBUF; }
+  __device__ void replay() {
+    for (int i = 0; i < n_live; ++i) visit(buf_idx[i], buf_d[i], buf_pay[i]);
+  }
+};
+
+// Runs the 4 retention passes; ``gen(keep)`` enumerates the live
+// candidates into keep.visit.
+template <class K, class G>
+__device__ void retain4(K& keep, G& gen) {
+  keep.begin(0);
+  gen(keep);
+  if (!keep.end()) return;
+  for (int s = 1; s < 4; ++s) {
+    keep.begin(s);
+    if (keep.buffered()) keep.replay();
+    else gen(keep);
+    if (!keep.end()) return;
+  }
+}
+
+// Ball vs the facet arena: payload (nx, ny, nz, gap), dispersion over n.
+__device__ void facet_sphere_manifold(const Params& P, V3 pos, float bg,
+                                      Keep4<4, 0>& keep) {
+  const float r = P.ball_radius;
+  auto gen = [&](Keep4<4, 0>& k) {
+    auto visit = [&](int idx, V3 n, float gap) {
+      const float pay[4] = {n.x, n.y, n.z, gap};
+      k.visit(idx, gap, pay);
+    };
+    facets::sphere_rows(P.facets, pos, r, bg, visit);
+    for (int sh = 0; sh < 2; ++sh) {
+      const float z0 = sh == 0 ? 0.f : ARENA_HEIGHT, up = sh == 0 ? 1.f : -1.f;
+      float cx[4], cy[4], gap[4];
+      facets::sheet_sphere(pos, r, z0, up, cx, cy, gap);
+      for (int i = 0; i < 4; ++i) {
+        if (!((gap[i] < bg) &&
+              facets::sheet_clip_ok(P.facets, cx[i], cy[i], SHEET_CLIP[sh])))
+          continue;
+        const float pay[4] = {0.f, 0.f, up, gap[i]};
+        k.visit(facets::SPHERE_ROWS + 4 * sh + i, gap[i], pay);
+      }
+    }
+  };
+  retain4(keep, gen);
+}
+
+// Car hitbox vs the facet arena: payload (nx, ny, nz, point on the car x,
+// y, z, dist), dispersion over the point.
+__device__ void facet_box_manifold(const Params& P, const Car& k, float brk,
+                                   Keep4<7, 3>& keep) {
+  const V3 bc = box_center(P, k);
+  auto gen = [&](Keep4<7, 3>& kp) {
+    auto visit = [&](int idx, V3 n, V3 pa, float dist) {
+      const float pay[7] = {n.x, n.y, n.z, pa.x, pa.y, pa.z, dist};
+      kp.visit(idx, dist, pay);
+    };
+    facets::box_rows(P.facets, bc, k.rot, P.half_extents, P.he_core,
+                     P.box_dist_m, brk, visit);
+    for (int sh = 0; sh < 2; ++sh) {
+      const float z0 = sh == 0 ? 0.f : ARENA_HEIGHT, up = sh == 0 ? 1.f : -1.f;
+      float cx[4], cy[4], dist[4];
+      facets::sheet_box(k.pos, k.rot, P.hitbox_offset, P.he_core,
+                        P.core_corners_local, z0, up, P.box_dist_m, cx, cy,
+                        dist);
+      for (int i = 0; i < 4; ++i) {
+        if (!((dist[i] < brk) &&
+              facets::sheet_clip_ok(P.facets, cx[i], cy[i], SHEET_CLIP[sh])))
+          continue;
+        // the lever arm's point on the car: the sheet point + n * dist
+        const float pay[7] = {0.f, 0.f, up, cx[i], cy[i],
+                              z0 + up * dist[i], dist[i]};
+        kp.visit(facets::BOX_ROWS + 4 * sh + i, dist[i], pay);
+      }
+    }
+  };
+  retain4(keep, gen);
+}
+
+struct Row {
+  V3 n, r;
+  float dist_bt;
+  bool act;
+};
+
+// One body against static rows, bullet's order: 10 velocity passes of the
+// normal rows then the friction rows, then 10 split-impulse position
+// passes; inactive rows apply their impulse times 0.
+template <int NR>
+__device__ void pgs_rows(const Params& P, V3 vel_bt, V3 ang_vel,
+                         const Row* rows, float inv_mass, const M3& iw,
+                         float restitution, float friction, V3 vel_pre_bt,
+                         V3 ang_vel_pre, V3& dv, V3& dw, V3& push, V3& turn) {
+  float jac_inv[NR], rest[NR], t_jac_inv[NR], push_t[NR], actf[NR];
+  V3 t_dir[NR];
+  for (int i = 0; i < NR; ++i) {
+    const V3 n = rows[i].n, r = rows[i].r;
+    V3 ang_comp = matvec(iw, cross(r, n));
+    jac_inv[i] = 1.0f / fmaxf(inv_mass + dot(n, cross(ang_comp, r)), 1e-12f);
+    rest[i] = restitution_rhs(dot(n, vel_pre_bt + cross(ang_vel_pre, r)),
+                              restitution);
+    V3 vel_at = vel_bt + cross(ang_vel, r);
+    V3 tang = vel_at - n * dot(n, vel_at);
+    float t_len = norm(tang);
+    t_dir[i] = t_len > 1.49e-8f ? tang * (1.0f / fmaxf(t_len, 1e-12f))
+                                : plane_space(n);
+    V3 t_ang = matvec(iw, cross(r, t_dir[i]));
+    t_jac_inv[i] =
+        1.0f / fmaxf(inv_mass + dot(t_dir[i], cross(t_ang, r)), 1e-12f);
+    push_t[i] = fmaxf(-rows[i].dist_bt, 0.f) * P.erp2_over_dt;
+    actf[i] = rows[i].act ? 1.f : 0.f;
+  }
+  dv = dw = vzero();
+  float j_n[NR], j_t[NR], j_p[NR];
+  for (int i = 0; i < NR; ++i) j_n[i] = j_t[i] = j_p[i] = 0.f;
+#pragma unroll 1
+  for (int it = 0; it < 10; ++it) {
+    for (int i = 0; i < NR; ++i) {
+      const V3 n = rows[i].n, r = rows[i].r;
+      float rel = dot(n, (vel_bt + dv) + cross(ang_vel + dw, r));
+      float new_acc = fmaxf(j_n[i] + (rest[i] - rel) * jac_inv[i], 0.f);
+      float dj = (new_acc - j_n[i]) * actf[i];
+      V3 imp = n * dj;
+      dv = dv + imp * inv_mass;
+      dw = dw + matvec(iw, cross(r, imp));
+      j_n[i] = j_n[i] + dj;
+    }
+    for (int i = 0; i < NR; ++i) {
+      const V3 r = rows[i].r, td = t_dir[i];
+      float rel = dot(td, (vel_bt + dv) + cross(ang_vel + dw, r));
+      float lim = friction * j_n[i];
+      float new_acc = clampf(j_t[i] + -rel * t_jac_inv[i], -lim, lim);
+      float dj = j_n[i] > 0.f ? (new_acc - j_t[i]) * actf[i] : 0.f;
+      V3 imp = td * dj;
+      dv = dv + imp * inv_mass;
+      dw = dw + matvec(iw, cross(r, imp));
+      j_t[i] = j_t[i] + dj;
+    }
+  }
+  V3 pv = vzero(), pw = vzero();
+#pragma unroll 1
+  for (int it = 0; it < 10; ++it) {
+    for (int i = 0; i < NR; ++i) {
+      const V3 n = rows[i].n, r = rows[i].r;
+      float rel = dot(n, pv + cross(pw, r));
+      float new_acc = fmaxf(j_p[i] + (push_t[i] - rel) * jac_inv[i], 0.f);
+      float dj = (new_acc - j_p[i]) * actf[i];
+      V3 imp = n * dj;
+      pv = pv + imp * inv_mass;
+      pw = pw + matvec(iw, cross(r, imp));
+      j_p[i] = j_p[i] + dj;
+    }
+  }
+  push = pv * P.dt;
+  turn = pw * P.turn_erp_dt;
+}
+
+// Car against the full-fidelity world: 4 retained facet contacts and the 4
+// true planes' support-vertex contacts, solved jointly.  The full-fidelity
+// solvers stay out of line: inlined, their registers and stack slowed the
+// plane arena's path in the same binary by a quarter (kernel_variants.py,
+// PERF.md).
+__device__ __noinline__ void resolve_car_world_mesh(
+    const Params& P, const Car& k, const M3& iw, V3 vel_pre, V3 ang_vel_pre,
+    V3& dvel, V3& dang, V3& push, V3& turn, bool& has_contact, V3& normal) {
+  const float brk = P.car_world_break;
+  Keep4<7, 3> keep;
+  facet_box_manifold(P, k, brk, keep);
+  Row rows[8];
+  for (int s = 0; s < 4; ++s) {
+    const float* p = keep.slot_pay[s];
+    rows[s].n = v3(p[0], p[1], p[2]);
+    rows[s].r = (v3(p[3], p[4], p[5]) - k.pos) * UU_TO_BT;
+    rows[s].dist_bt = p[6] * UU_TO_BT;
+    rows[s].act = keep.occ[s];
+  }
+  for (int p = 0; p < NTRUE_PLANES; ++p) {
+    const float* pl = P.planes[p];
+    V3 n = plane_n(pl);
+    V3 ldir = mat_t_vec(k.rot, -n);
+    const float* sl = P.corners_local[(ldir.x >= 0.f ? 4 : 0) +
+                                      (ldir.y >= 0.f ? 2 : 0) +
+                                      (ldir.z >= 0.f ? 1 : 0)];
+    V3 sup = k.pos + matvec(k.rot, v3(sl[0], sl[1], sl[2]));
+    float d = plane_dist(pl, sup);
+    rows[4 + p].n = n;
+    rows[4 + p].r = (sup - k.pos) * UU_TO_BT;
+    rows[4 + p].dist_bt = d * UU_TO_BT;
+    rows[4 + p].act = d < brk;
+  }
+  V3 dv_bt, push_bt;
+  pgs_rows<8>(P, k.vel * UU_TO_BT, k.ang_vel, rows, P.inv_car_mass, iw,
+              P.car_world_restitution, P.car_world_friction,
+              vel_pre * UU_TO_BT, ang_vel_pre, dv_bt, dang, push_bt, turn);
+  has_contact = false;
+  V3 nsum = vzero();
+  for (int i = 0; i < 8; ++i) {
+    has_contact = has_contact | rows[i].act;
+    nsum = nsum + (rows[i].act ? rows[i].n : vzero());
+  }
+  normal = has_contact ? normalize(nsum) : vzero();
+  dvel = dv_bt * BT_TO_UU;
+  push = push_bt * BT_TO_UU;
+}
+
+// Ball against the full-fidelity world: the merged contact over the 4 true
+// planes and the 4 retained facet contacts, 10 solver passes.
+template <int NC>
+__device__ __noinline__ void resolve_ball_world_mesh(const Params& P,
+                                                     Arena<NC>& a,
+                                                     V3 ball_vel_pre,
+                                                     V3& push) {
+  float num = 0.f, max_depth = 0.f;
+  V3 navg = vzero();
+  for (int p = 0; p < NTRUE_PLANES; ++p) {
+    const float* pl = P.planes[p];
+    float gap = plane_dist(pl, a.bpos) - P.ball_radius;
+    bool act = gap < P.ball_world_break;
+    float actf = act ? 1.f : 0.f;
+    num = num + actf;
+    navg = navg + plane_n(pl) * actf;
+    max_depth = fmaxf(max_depth, act ? -gap : 0.f);
+  }
+  Keep4<4, 0> keep;
+  facet_sphere_manifold(P, a.bpos, P.ball_world_break, keep);
+  for (int s = 0; s < 4; ++s) {
+    const float* p = keep.slot_pay[s];
+    float occf = keep.occ[s] ? 1.f : 0.f;
+    num = num + occf;
+    navg = navg + v3(p[0], p[1], p[2]) * occf;
+    max_depth = fmaxf(max_depth, keep.occ[s] ? -p[3] : 0.f);
+  }
+  push = vzero();
+  if (!(num > 0.f)) return;
+  navg = navg * (1.0f / fmaxf(num, 1.0f));
+  V3 r_bt = navg * P.neg_ball_r_bt;
+  M3 iw = diag3(P.ball_inv_inertia);
+  V3 dv_bt, dw;
+  contact_vs_static(a.bvel * UU_TO_BT, a.bang, r_bt, navg, P.inv_ball_mass,
+                    iw, P.ball_world_restitution, P.ball_world_friction,
+                    ball_vel_pre * UU_TO_BT, a.bang, 10, dv_bt, dw);
+  a.bvel = a.bvel + dv_bt * BT_TO_UU;
+  a.bang = a.bang + dw;
+  push = navg * (fmaxf(max_depth, 0.f) * SOLVER_ERP2);
+}
+
 // Car-ball rows for every car (10 coupled normal + friction passes each,
 // summed onto the ball in car order) and the psyonix extra impulse.
 template <int NC>
@@ -1164,10 +1662,6 @@ struct Manifold {
   bool active[4];
   bool overlap;
 };
-
-__device__ __forceinline__ float comp(V3 v, int i) {
-  return i == 0 ? v.x : (i == 1 ? v.y : v.z);
-}
 
 // face manifold with reference box a and incident box b
 __device__ void face_branch(const V3* axa, V3 pa, const float* Sa,
@@ -1326,15 +1820,6 @@ __device__ void box_box(V3 p1, const M3& R1, const float* he1, V3 p2,
   mf.normal = normal;
 }
 
-__device__ __forceinline__ V3 plane_space(V3 n) {
-  if (fabsf(n.z) > 0.70710678f) {
-    float k1 = 1.0f / sqrtf(fmaxf(n.y * n.y + n.z * n.z, 1e-12f));
-    return v3(0.f, -n.z * k1, n.y * k1);
-  }
-  float k2 = 1.0f / sqrtf(fmaxf(n.x * n.x + n.y * n.y, 1e-12f));
-  return v3(-n.y * k2, n.x * k2, 0.f);
-}
-
 struct PairOut {
   V3 dv0, dw0, dv1, dw1, push0, push1, turn0, turn1;
 };
@@ -1428,21 +1913,23 @@ __device__ void pgs_pair(const Params& P, V3 v0, V3 w0, V3 v1, V3 w1,
 // All pairs i < j in order: manifold, pair solver, then bump/demo both ways
 // with the pre-force velocities (ctick._car_car).  Every pair reads the
 // state as it was when the car-car stage began; the results are summed in
-// pair order and applied by the caller.
+// pair order and applied by the caller.  The per-car event flags are int
+// arrays: held as bool arrays, nvcc 12.9 at -O3 built a kernel that
+// demolished car 0 at kickoff (-G, -Xcicc -O1 or a non-inlined car_car
+// did not; chip_smoke.py's kernel-vs-plain phases catch it).
 template <int NC>
 __device__ void car_car(const Params& P, const Arena<NC>& a, const M3* iw,
                         const bool* alive, const V3* vel_pre, V3* dvel,
                         V3* dang, V3* push, V3* turn, V3* cache_dv,
-                        bool* got_demoed, bool* bumped_any, int* bumped_id,
-                        bool* lat_bump, bool* lat_bumped, bool* lat_demo,
-                        bool* lat_demoed) {
+                        int* got_demoed, int* bumped_id, int* lat_bump,
+                        int* lat_bumped, int* lat_demo, int* lat_demoed) {
   V3 bc_bt[NC];
   for (int c = 0; c < NC; ++c) {
     const Car& k = a.car[c];
     V3 off = v3(P.hitbox_offset[0], P.hitbox_offset[1], P.hitbox_offset[2]);
     bc_bt[c] = (k.pos + matvec(k.rot, off)) * UU_TO_BT;
     dvel[c] = dang[c] = push[c] = turn[c] = cache_dv[c] = vzero();
-    got_demoed[c] = bumped_any[c] = false;
+    got_demoed[c] = false;
     bumped_id[c] = 0;
     lat_bump[c] = lat_bumped[c] = lat_demo[c] = lat_demoed[c] = false;
   }
@@ -1520,7 +2007,7 @@ __device__ void car_car(const Params& P, const Arena<NC>& a, const M3* iw,
                                     P.bump_force_scale);
         cache_dv[ib] = cache_dv[ib] + (plain_bump ? bump_imp : vzero());
         got_demoed[ib] = got_demoed[ib] | is_demo;
-        bumped_any[ia] = bumped_any[ia] | bump;
+        // a bump of ia: its highest bumped slot + 1 (0: none)
         bumped_id[ia] = max(bumped_id[ia], bump ? ib + 1 : 0);
         if (!same_team) {
           lat_bump[ia] = lat_bump[ia] | bump;
@@ -1626,8 +2113,10 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
   bool alive[NC];
   Car frozen[NC];
   M3 iw[NC];
-  V3 vel_pre[NC], ang_vel_pre[NC], cw_push[NC], sticky[NC], air_acc[NC],
-      air_ang[NC], jump_acc[NC], ar_acc[NC], ar_ang[NC], boost_acc[NC];
+  V3 vel_pre[NC], ang_vel_pre[NC], cw_push[NC], cw_turn[NC], sticky[NC],
+      air_acc[NC], air_ang[NC], jump_acc[NC], ar_acc[NC], ar_ang[NC],
+      boost_acc[NC];
+  const bool mesh = FLAG_ON(P.use_mesh);
 
 #pragma unroll 1
   for (int c = 0; c < NC; ++c) {
@@ -1645,12 +2134,24 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
     frozen[c] = k;
     iw[c] = inv_inertia_world(k.rot, P.inv_i_local[0], P.inv_i_local[1],
                               P.inv_i_local[2]);
+  }
 
-    // updateVehicleFirst: raycasts and the previous tick's friction
-    Rays rc;
-    wheel_raycasts(P, k, iw[c], rc);
-    V3 imps[4];
-    calc_friction_impulses(P, k, rc, iw[c], imps);
+  // updateVehicleFirst: every car's raycasts and previous-tick friction,
+  // read from the state after the respawns (dynamic rays see the others)
+  Rays rcs[NC];
+  V3 impss[NC][4];
+#pragma unroll 1
+  for (int c = 0; c < NC; ++c) {
+    wheel_raycasts<NC>(P, a, c, alive, iw[c], rcs[c]);
+    calc_friction_impulses<NC>(P, a, c, rcs[c], iw, impss[c]);
+  }
+
+#pragma unroll 1
+  for (int c = 0; c < NC; ++c) {
+    Car& k = a.car[c];
+    float* ctl = k.controls;
+    const Rays& rc = rcs[c];
+    const V3* imps = impss[c];
     int num_contact = (int)rc.hit[0] + (int)rc.hit[1] + (int)rc.hit[2] +
                       (int)rc.hit[3];
     for (int w = 0; w < 4; ++w) k.wheels[w] = rc.hit[w];
@@ -1725,8 +2226,12 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
     Car& k = a.car[c];
     V3 dv, dw, n;
     bool contact;
-    resolve_car_world(P, k, iw[c], vel_pre[c], ang_vel_pre[c], dv, dw,
-                      cw_push[c], contact, n);
+    if (mesh)
+      resolve_car_world_mesh(P, k, iw[c], vel_pre[c], ang_vel_pre[c], dv, dw,
+                             cw_push[c], cw_turn[c], contact, n);
+    else
+      resolve_car_world(P, k, iw[c], vel_pre[c], ang_vel_pre[c], dv, dw,
+                        cw_push[c], contact, n);
     k.vel = k.vel + dv;
     k.ang_vel = k.ang_vel + dw;
     k.has_world_contact = contact;
@@ -1736,16 +2241,16 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
   V3 ball_cache_dv;
   resolve_car_ball(P, a, iw, alive, vel_pre, ball_vel_pre, ball_cache_dv);
   V3 bw_push;
-  resolve_ball_world(P, a, ball_vel_pre, bw_push);
+  if (mesh) resolve_ball_world_mesh(P, a, ball_vel_pre, bw_push);
+  else resolve_ball_world(P, a, ball_vel_pre, bw_push);
 
   V3 cc_dv[NC], cc_dw[NC], cc_push[NC], cc_turn[NC], cc_cache[NC];
-  bool got_demoed[NC], bumped_any[NC], l_bump[NC], l_bumped[NC], l_demo[NC],
+  int got_demoed[NC], bumped_id[NC], l_bump[NC], l_bumped[NC], l_demo[NC],
       l_demoed[NC];
-  int bumped_id[NC];
   if (NC > 1) {
     car_car(P, a, iw, alive, vel_pre, cc_dv, cc_dw, cc_push, cc_turn,
-            cc_cache, got_demoed, bumped_any, bumped_id, l_bump, l_bumped,
-            l_demo, l_demoed);
+            cc_cache, got_demoed, bumped_id, l_bump, l_bumped, l_demo,
+            l_demoed);
   }
 
 #pragma unroll 1
@@ -1754,7 +2259,7 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
     if (NC > 1) {
       k.vel = k.vel + cc_dv[c];
       k.ang_vel = k.ang_vel + cc_dw[c];
-      if (bumped_any[c]) {
+      if (bumped_id[c] > 0) {
         k.contact_other_id = bumped_id[c];
         k.car_contact_cooldown = P.bump_cooldown_time;
       }
@@ -1765,6 +2270,8 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
     V3 pos = k.pos + k.vel * dt + cw_push[c];
     k.pos = NC > 1 ? pos + cc_push[c] : pos;
     k.rot = integrate_rotation(k.rot, k.ang_vel, dt);
+    // split-impulse turn of the world contacts, then of the car pairs
+    if (mesh) k.rot = integrate_rotation(k.rot, cw_turn[c], 1.0f);
     if (NC > 1) k.rot = integrate_rotation(k.rot, cc_turn[c], 1.0f);
 
     // supersonic state and speed clamps
@@ -1851,9 +2358,43 @@ cudaError_t launch(const Params& P, const Bufs& B, int tick_skip,
 
 }  // namespace
 
-// Plain C entry point, bound with ctypes by ops/arena_step.py.  Returns a
-// cudaError_t (0 on success); 1000 + n for a Params buffer of the wrong
-// size, 2000 + C for an unsupported car count.
+// Entry points, bound with ctypes by ops/arena_step.py.  The build compiles
+// this file once per car count (-DARENA_STEP_NC=n, each object holding one
+// instantiation of the kernel, all in parallel) and once for the dispatcher
+// (-DARENA_STEP_DISPATCH), and links the objects; without either macro one
+// translation unit holds everything.
+#define ARENA_STEP_ARGS                                                     \
+  const void *params, const float *f_in, const int32_t *i_in,               \
+      const uint8_t *u_in, float *f_out, int32_t *i_out, uint8_t *u_out,    \
+      const float *controls, const int32_t *respawn, int num_envs,          \
+      int tick_skip, int action_delay, void *stream
+#define ARENA_STEP_LAUNCHER(N)                                              \
+  extern "C" int arena_step_launch_##N(ARENA_STEP_ARGS) {                   \
+    Params P = *reinterpret_cast<const Params*>(params);                    \
+    Bufs B{f_in,  i_in,     u_in,    f_out, i_out,                          \
+           u_out, controls, respawn, num_envs};                             \
+    return (int)launch<N>(P, B, tick_skip, action_delay,                    \
+                          reinterpret_cast<cudaStream_t>(stream));          \
+  }
+#define ARENA_STEP_LAUNCHER_OF(N) ARENA_STEP_LAUNCHER(N)
+
+#if defined(ARENA_STEP_NC)
+ARENA_STEP_LAUNCHER_OF(ARENA_STEP_NC)
+#else
+#if defined(ARENA_STEP_DISPATCH)
+extern "C" int arena_step_launch_1(ARENA_STEP_ARGS);
+extern "C" int arena_step_launch_2(ARENA_STEP_ARGS);
+extern "C" int arena_step_launch_4(ARENA_STEP_ARGS);
+extern "C" int arena_step_launch_6(ARENA_STEP_ARGS);
+#else
+ARENA_STEP_LAUNCHER(1)
+ARENA_STEP_LAUNCHER(2)
+ARENA_STEP_LAUNCHER(4)
+ARENA_STEP_LAUNCHER(6)
+#endif
+
+// Returns a cudaError_t (0 on success); 1000 + n for a Params buffer of the
+// wrong size, 2000 + C for an unsupported car count.
 extern "C" int arena_step_launch(const void* params, int params_bytes,
                                  const float* f_in, const int32_t* i_in,
                                  const uint8_t* u_in, float* f_out,
@@ -1863,17 +2404,20 @@ extern "C" int arena_step_launch(const void* params, int params_bytes,
                                  int num_cars, int tick_skip,
                                  int action_delay, void* stream) {
   if (params_bytes != (int)sizeof(Params)) return 1000 + params_bytes;
-  Params P = *reinterpret_cast<const Params*>(params);
-  Bufs B{f_in, i_in, u_in, f_out, i_out, u_out, controls, respawn, num_envs};
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (num_envs == 0) return 0;
+#define ARENA_STEP_CALL(N)                                                  \
+  arena_step_launch_##N(params, f_in, i_in, u_in, f_out, i_out, u_out,      \
+                        controls, respawn, num_envs, tick_skip,             \
+                        action_delay, stream)
   switch (num_cars) {
-    case 1: return (int)launch<1>(P, B, tick_skip, action_delay, s);
-    case 2: return (int)launch<2>(P, B, tick_skip, action_delay, s);
-    case 4: return (int)launch<4>(P, B, tick_skip, action_delay, s);
-    case 6: return (int)launch<6>(P, B, tick_skip, action_delay, s);
+    case 1: return ARENA_STEP_CALL(1);
+    case 2: return ARENA_STEP_CALL(2);
+    case 4: return ARENA_STEP_CALL(4);
+    case 6: return ARENA_STEP_CALL(6);
     default: return 2000 + num_cars;
   }
+#undef ARENA_STEP_CALL
 }
 
 extern "C" int arena_step_params_bytes() { return (int)sizeof(Params); }
+#endif

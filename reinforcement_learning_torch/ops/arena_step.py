@@ -34,19 +34,24 @@ from reinforcement_learning_torch.ops.pack import (CAR_BOOLS, CAR_INTS,
                                                    CAR_SCALARS_F32, CAR_VECS,
                                                    LATCHES)
 from reinforcement_learning_torch.physics import arena_geom as geom
+from reinforcement_learning_torch.physics import facet_arena
 from reinforcement_learning_torch.physics.car import WheelControlsState
 from reinforcement_learning_torch.physics.state import (ArenaState, BallState,
                                                         CarsState, PadsState)
 from reinforcement_learning_torch.physics.step import PhysicsState
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = (CSRC / "arena_step.cu", CSRC / "cvec.cuh")
+SOURCES = (CSRC / "arena_step.cu", CSRC / "cvec.cuh", CSRC / "facets.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # -fmad=false: no a*b+c is contracted into an FMA, so every operation rounds
 # as the plain version's elementwise tensor ops do.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-fmad=false", "-Xcompiler",
+                     "-fPIC")
 SUPPORTED_CARS = (1, 2, 4, 6)   # the kernel's instantiations
+# one object per car count plus the dispatcher, compiled in parallel
+_OBJECTS = tuple((f"nc{n}", f"-DARENA_STEP_NC={n}") for n in SUPPORTED_CARS
+                 ) + (("dispatch", "-DARENA_STEP_DISPATCH"),)
 MAX_CARS = 8
 
 _CURVES = (  # the kernel's CV_* order
@@ -70,29 +75,48 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def nvcc() -> str:
+    """The path of nvcc; raises where there is none."""
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the arena_step kernel is built "
+                           "on a machine with the CUDA toolkit")
+    return path
+
+
 def build(verbose: bool = False) -> tuple[Path, str]:
     """Compile the kernel for sm_90a unless a build of these exact sources
-    exists.  Returns (path of the .so, nvcc's output).  ``verbose`` adds
-    ``-Xptxas -v`` (registers, spills) and always rebuilds."""
+    exists: one nvcc per car count and one for the dispatcher, all started
+    together, then a link.  Returns (path of the .so, nvcc's output).
+    ``verbose`` adds ``-Xptxas -v`` (registers, spills) and always
+    rebuilds."""
     out = BUILD_DIR / f"arena_step_{_source_hash()}.so"
     if out.exists() and not verbose:
         return out, ""
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the arena_step kernel is built "
-                           "on a machine with the CUDA toolkit")
+    nvcc_path = nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(SOURCES[0])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for tag, define in _OBJECTS:
+            obj = os.path.join(tmpdir, f"{tag}.o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc_path, *NVCC_FLAGS,
+                 *(("-Xptxas", "-v") if verbose else ()),
+                 define, "-c", "-o", obj, str(SOURCES[0])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        so = os.path.join(tmpdir, "arena_step.so")
+        link = subprocess.run([nvcc_path, *ARCH, "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(so, out)
+    return out, log + link.stdout + link.stderr
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,7 +200,37 @@ def pack_params(params, teams: tuple) -> np.ndarray:
         pad = lambda v, m: list(v) + [0.0] * (m - len(v))  # noqa: E731
         f += [float(n)] + pad(xs, 6) + pad(ys, 6)
         f += pad(np.diff(xs), 5) + pad(np.diff(ys), 5)
+    f += _pack_full_fidelity(k)
     return np.asarray(f, np.float32)
+
+
+# facet table rows in the kernel's order (facets.cuh BZ0.. and SNX..)
+_BAND_ROWS = ("z0", "w0", "tw", "tz", "L", "nw", "nz", "lo_flat", "hi_flat",
+              "cut_t0", "cut_ts")
+_SIDE_ROWS = ("side_nx", "side_ny", "side_d", "side_ux", "side_uy", "lo0",
+              "loS", "hi0", "hiS")
+
+
+def _pack_full_fidelity(k) -> list:
+    """The full-fidelity tail of ``Params``: the two flags, values folded in
+    double precision, and the facet tables (packed in plane mode too, so
+    the struct keeps one size)."""
+    mut = k.mut
+    he = k.half_extents
+    hc = [v - C.MESH_COLLISION_MARGIN for v in he]
+    t = k.facets or facet_arena.tables()
+    bands = facet_arena.band_table(t)
+    f = [float(k.use_mesh), float(k.dynamic_rays),
+         C.SOLVER_ERP2 / k.dt, mut.ball_radius * mut.ball_radius,
+         facet_arena.box_dist_margin(he)]
+    f += hc
+    f += [k.hitbox_offset[i] + sg[i] * hc[i]
+          for sg in facet_arena.CORNER_SIGNS for i in range(3)]
+    for name in _BAND_ROWS:
+        f += [float(v) for v in bands[name]]
+    for s in range(facet_arena.N_SIDES):
+        f += [getattr(t, name)[s] for name in _SIDE_ROWS]
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -293,9 +347,8 @@ def arena_step(phys: PhysicsState, controls: torch.Tensor,
     ...)``; ``controls``: ``(E, C, 8)`` float32, applied from tick
     ``action_delay``; ``respawn_idx``: ``(E, C)`` int32, one respawn-table
     row per car for this step; ``params``: ``ArenaParams``; ``teams``: team
-    id per car slot.  Raises ``NotImplementedError`` for the configurations
-    the kernel does not run (mesh arena, dynamic wheel rays, game modes
-    other than soccar)."""
+    id per car slot.  Raises ``NotImplementedError`` for game modes other
+    than soccar."""
     teams = tuple(int(t) for t in teams)
     ctick.check_supported(params)
     E, Cn = phys.arena.cars.boost.shape

@@ -8,10 +8,19 @@ leaves it out.  ``step_work`` runs the plain version under a dispatch
 counter that counts, for every elementwise float arithmetic op, its output
 elements (selects, compares and copies are not counted), and weights the
 ops inside each gated call by the share of its lanes whose gate is set.
-The separating-axis test of every car pair is counted in full: it is what
-decides the contact.  (The kernel skips the plane, ball and car-ball
-solvers without contact; it still runs the box manifold and the pair
-solver for every car pair.)
+The gates (``GATES``): the plane, ball and car-ball solvers where their
+contact exists; the car-pair box manifold and pair solver where the pair
+overlaps (the separating-axis test that decides it is counted in full);
+wheel friction and suspension where the ray hit; at full fidelity, each
+facet query of a car or the ball where one of its own rows is live (the
+band and goal facets, the floor grid and the ceiling grid separately), so
+a ball resting on the floor grid counts the grid's rows and not the walls'
+and goal's; the 4-slot retention on its live candidates only; the rest of
+a manifold where a slot is occupied; the facet raycast where it hits a
+facet; and the joint PGS where a row is live.  (The kernel skips the
+plane, ball and car-ball solvers without contact; it still runs the facet
+queries of every body, the joint PGS of every car, and the box manifold
+and pair solver of every car pair.)
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from reinforcement_learning_torch.ops import ctick
 from reinforcement_learning_torch.physics import box_box
+from reinforcement_learning_torch.physics import facet_arena
 
 ARITH = frozenset({
     "add", "sub", "mul", "div", "neg", "abs", "sqrt", "rsqrt", "sin", "cos",
@@ -33,21 +43,39 @@ ARITH = frozenset({
     "reciprocal", "fmod", "sum", "exp", "log", "rsub"})
 
 
-def _wheel_hits(args):
+def _wheel_hits(args, out):
     return torch.stack(args["rc"]["hit"])
 
 
+def _any(masks):
+    return functools.reduce(operator.or_, masks)
+
+
 # (module, function) -> the lanes of a call that need its work, from the
-# call's arguments
+# call's arguments and its output
 GATES = {
-    (ctick, "_contact_vs_static"): lambda a: a["active"],
-    (ctick, "_car_ball_rows"): lambda a: a["touching"],
-    (ctick, "_pgs_pair"): lambda a: functools.reduce(operator.or_, a["act"]),
+    (ctick, "_contact_vs_static"): lambda a, out: a["active"],
+    (ctick, "_car_ball_rows"): lambda a, out: a["touching"],
+    (ctick, "_pgs_pair"): lambda a, out: _any(a["act"]),
     (ctick, "_calc_friction_impulses"): _wheel_hits,
     (ctick, "_apply_suspension"): _wheel_hits,
     (ctick, "_apply_friction_impulses"): _wheel_hits,
-    (box_box, "_manifold"): lambda a: (~a["sat"]["separated"]
-                                       & (a["sat"]["code"] > 0)),
+    (box_box, "_manifold"): lambda a, out: (~a["sat"]["separated"]
+                                            & (a["sat"]["code"] > 0)),
+    # full fidelity: each query where one of its rows is live, the
+    # retention weighted by its live candidates' share, the rest of a
+    # manifold where slot 0 is occupied (iff any candidate is live)
+    (facet_arena, "sphere_contacts"): lambda a, out: out[4].any(0),
+    (facet_arena, "box_contacts"): lambda a, out: out[7].any(0),
+    (facet_arena, "sheet_sphere_contacts"):
+        lambda a, out: _any([row[6] for row in out]),
+    (facet_arena, "sheet_box_contacts"):
+        lambda a, out: _any([row[7] for row in out]),
+    (ctick, "keep_diverse4"): lambda a, out: (a["d"] < 1e30).float().mean(0),
+    (ctick, "_facet_box_manifold"): lambda a, out: out[0][3],
+    (ctick, "_facet_sphere_manifold"): lambda a, out: out[0][2],
+    (facet_arena, "raycasts"): lambda a, out: out[4],
+    (ctick, "_pgs_rows"): lambda a, out: _any([r[3] for r in a["rows"]]),
 }
 
 
@@ -108,7 +136,7 @@ def step_work(phys, new_controls, respawn_idx, consts, tick_skip: int = 8,
             finally:
                 ops = counter.frames.pop()
             counter.paused = True
-            share = gate(sig.bind(*args, **kw).arguments)
+            share = gate(sig.bind(*args, **kw).arguments, out)
             needed[name].append(ops * share.float().mean())
             counter.paused = False
             full[name] += ops

@@ -42,3 +42,40 @@ GOAL_XN, GOAL_XP, GOAL_CEIL, NET_YN, NET_YP = 10, 11, 12, 13, 14
 # single support-vertex manifolds.  The rest stand in for triangle meshes.
 _TRUE_PLANE = np.zeros(NUM_PLANES, bool)
 _TRUE_PLANE[[FLOOR, CEILING, WALL_XN, WALL_XP]] = True
+TRUE_PLANES = (FLOOR, CEILING, WALL_XN, WALL_XP)
+
+# ---------------------------------------------------------------------------
+# The procedural soccar mesh's profile (RocketSim.cpp:102-212): an octagonal
+# plan whose walls sweep one vertical profile, a floor fillet arc, a straight
+# section and a ceiling fillet arc.  physics/facet_arena.py derives its
+# closed-form facet tables from these.
+
+FLOOR_FILLET_RADIUS = 152.0    # floor -> wall transition ramp
+CEILING_FILLET_RADIUS = 256.0  # wall -> ceiling transition ramp
+
+
+def octagon_planes() -> np.ndarray:
+    """The 8 outward wall planes of the soccar plan, as (nx, ny, d) with the
+    wall surface at n.p = d, n pointing out of the arena."""
+    s = 1.0 / np.sqrt(2.0)
+    return np.array([
+        [1, 0, C.ARENA_EXTENT_X],
+        [s, s, C.ARENA_CORNER_INTERCEPT * s],
+        [0, 1, C.ARENA_EXTENT_Y],
+        [-s, s, C.ARENA_CORNER_INTERCEPT * s],
+        [-1, 0, C.ARENA_EXTENT_X],
+        [-s, -s, C.ARENA_CORNER_INTERCEPT * s],
+        [0, -1, C.ARENA_EXTENT_Y],
+        [s, -s, C.ARENA_CORNER_INTERCEPT * s],
+    ], np.float64)
+
+
+def z_samples(height: float, r_floor: float, r_ceil: float,
+              n_fillet: int) -> np.ndarray:
+    """The profile's z levels: arc-uniform along both fillets, plus mid
+    height and GOAL_HEIGHT (where the goal-opening cut ends)."""
+    th = np.linspace(0, np.pi / 2, n_fillet + 1)
+    z_lo = r_floor * (1.0 - np.cos(th))
+    z_hi = height - r_ceil * (1.0 - np.cos(th))
+    mid = np.array([height * 0.5, C.GOAL_HEIGHT])
+    return np.unique(np.concatenate([z_lo, np.sort(z_hi), mid]))

@@ -35,10 +35,10 @@ class PhysicsState:
 class ArenaParams:
     """Static arena configuration.
 
-    ``use_mesh`` (collide against the triangle-mesh arena) and
-    ``dynamic_wheel_rays`` (wheel rays also hit the ball and other cars)
-    default to the reference's full fidelity.  The port's kernel runs the
-    analytic-plane arena only and raises for either flag."""
+    ``use_mesh`` (collide against the procedural mesh arena, as the
+    closed-form facet arena) and ``dynamic_wheel_rays`` (wheel rays also
+    hit the ball and other cars) default to the reference's full
+    fidelity; with both off the kernel runs the analytic-plane arena."""
     num_cars: int
     mutators: MutatorConfig = None
     car_config: CarConfig = CarConfig()

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of it, and not ``chip_smoke.py``,
-imports JAX (or flax/optax), the JAX package or ``tools``."""
+"""The port stands alone: no module of it, and neither ``chip_smoke.py``
+nor ``kernel_variants.py``, imports JAX (or flax/optax), the JAX package
+or ``tools``."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "reinforcement_learning_tpu",
              "tools")
 FILES = sorted((ROOT / "reinforcement_learning_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_variants.py"]
 
 
 def _imported_roots(path: Path) -> set:

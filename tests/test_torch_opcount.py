@@ -13,6 +13,12 @@ from reinforcement_learning_torch.physics import step as tstep
 
 E, CARS, TEAMS = 2, 4, (0, 0, 1, 1)
 TICKS = 2
+FULL_FIDELITY_GATES = ("_facet_box_manifold", "_facet_sphere_manifold",
+                       "sphere_contacts", "box_contacts",
+                       "sheet_sphere_contacts", "sheet_box_contacts",
+                       "keep_diverse4", "raycasts", "_pgs_rows")
+CAR_FACET_GATES = ("_facet_box_manifold", "box_contacts", "raycasts",
+                   "_pgs_rows")
 
 torch.set_num_threads(1)
 
@@ -62,7 +68,8 @@ def test_step_work_runs_the_plain_step_and_restores_it():
     assert 0 < work.ops_needed < work.ops_branch_free
     for name, (needed, full) in work.by_gate.items():
         assert 0 <= needed <= full, name
-        assert full > 0, name
+        # the plane arena runs every gated solver but the full-fidelity ones
+        assert (full > 0) == (name not in FULL_FIDELITY_GATES), name
 
 
 def test_gated_work_follows_the_contacts():
@@ -82,3 +89,47 @@ def test_count_ops_counts_output_elements_of_arithmetic():
     ops, calls = opcount.count_ops(lambda: torch.where(a > 0, a * 2 + 1, a))
     assert ops == 24           # mul and add; compare and select not counted
     assert calls == 4
+
+
+def _mesh_work(phys):
+    params = tstep.ArenaParams(num_cars=CARS)
+    ctl = torch.zeros(E, CARS, 8)
+    ridx = torch.zeros(E, CARS, dtype=torch.int32)
+    consts = arena_step_mod._consts(params, TEAMS)
+    return opcount.step_work(phys, ctl, ridx, consts, tick_skip=1,
+                             action_delay=0)
+
+
+def test_full_fidelity_gates_follow_the_facets():
+    """At full fidelity each facet query, the facet raycast and the joint
+    PGS count only where one of their own rows is live, and the retention
+    on its live candidates: nothing for cars resting midfield; for the
+    ball resting there the floor grid's rows and not the walls' or the
+    goal's; on the x+ side wall, car 0 lying with its underside against it
+    and car 1 standing on it on its wheels."""
+    midfield = _state(overlap=False)
+    apart = _mesh_work(midfield)
+    for name in CAR_FACET_GATES + ("sheet_box_contacts",):
+        needed, full = apart.by_gate[name]
+        assert needed == 0 and full > 0, name
+    # the resting ball touches the floor grid: its manifold is needed, but
+    # only the grid's rows, and the retention for a few live candidates
+    assert apart.by_gate["_facet_sphere_manifold"][0] > 0
+    assert apart.by_gate["sheet_sphere_contacts"][0] > 0
+    assert apart.by_gate["sphere_contacts"][0] == 0
+    needed, full = apart.by_gate["keep_diverse4"]
+    assert 0 < needed < full / 10
+    walled = tree_map(lambda t: t.clone(), midfield)
+    cars = walled.arena.cars
+    cars.pos[:, 0] = torch.tensor([4099.0, -1000.0, 600.0])
+    cars.pos[:, 1] = torch.tensor([4079.0, 1000.0, 600.0])
+    cars.rot[:, :2] = torch.tensor([[0., 0., -1.], [0., 1., 0.],
+                                    [1., 0., 0.]])      # up = -x
+    near = _mesh_work(walled)
+    for name in CAR_FACET_GATES:
+        needed, full = near.by_gate[name]
+        # at most two cars of four
+        assert 0 < needed <= full / 2 + 1e-6 * full, name
+    # 600 uu up, no car reaches the floor or ceiling grid
+    assert near.by_gate["sheet_box_contacts"][0] == 0
+    assert near.ops_needed > apart.ops_needed
