@@ -22,22 +22,38 @@ Phases, each of which must pass (nothing is caught):
    dropped on the ball and a car dropped on another car's roof; each
    shows that its contact happened where no true plane can stand in,
    reading the plain step's facet candidates or wheel rays;
-4. the two paths, each with the kernel's launch count set to 0 before and
-   read after: ``RocketLeagueEnv`` 1024 x 2v2 and a ``PPOLearner`` at the
-   bench widths in bf16, ``Trainer.collect`` for 24 env steps, first on
-   the plane arena (the earlier slice's path), then at full fidelity (the
-   main path, the default ``EnvConfig`` with no arena override); on each
-   path's end state the kernel is held against the plain version, the
-   plain run counting the work those inputs need for the kernel's bound
+4. the game modes (heatseeker and snowday at full fidelity, one
+   heatseeker state on the plane arena too): the same at E=1024 from six
+   crafted states, each of whose event the plain step shows in at least
+   90% of arenas: the heatseeker ball steering in flight without contact,
+   cars of both teams first touching it in the same tick (some within the
+   minimum speed-up interval of the last hit), a deep back-wall hit that
+   flips its target (at full fidelity and on the plane arena), a tumbling
+   snowday puck dropped on the floor (ground stick), and a tilted puck
+   into a side wall or a corner;
+5. the collection paths, each with the kernel's launch count set to 0
+   before and read after: ``RocketLeagueEnv`` 1024 x 2v2 and a
+   ``PPOLearner`` at the bench widths in bf16, ``Trainer.collect`` for 24
+   env steps, on the plane arena and at full fidelity; on each path's end
+   state the kernel is held against the plain version, the plain run
+   counting the work those inputs need for the kernel's bound
    (ops/opcount.py), and the kernel, the plain version and the collection
    are timed;
-5. the full-fidelity collection at 8 arenas on the card against the plain
+6. the main path: ``Trainer.train_iteration`` at bench.py's shape
+   (bench_torch.py: 1024 x 2v2 soccar at full fidelity, 24 env steps,
+   batch 50k, 2 epochs): one warm-up iteration, 3 timed ones (launches
+   must be 24 per iteration, every metric finite, the parameters changed),
+   and one more split into collect, values + GAE + Welford, and update;
+7. one ``train_iteration`` each in heatseeker and snowday at the same
+   width, with the end-state check, work count and timing of step 5;
+8. the full-fidelity collection at 8 arenas on the card against the plain
    path on the CPU, deterministic actions, fp32.
 
 Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` and allows
 at most one arena (0.1% of 1024) with a differing boolean or integer,
-none in the demo and car-car states.  Prints the card's name and power
-limit, a ``kernels`` JSON line with one entry per configuration, and as
+none in the demo, car-car and game-mode states.  Prints the card's name
+and power limit, a ``kernels`` JSON line with one entry per configuration
+(soccar plane arena, soccar full fidelity, heatseeker, snowday), and as
 its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
 a CUDA card or without the repository beside it.
 """
@@ -447,6 +463,168 @@ class States:
         return phys
 
 
+    # -- game modes ---------------------------------------------------------
+    def _sign(self):
+        import torch
+        return torch.where(self.u(0, 1) > 0.5, 1.0, -1.0)
+
+    def hs_flight(self, phys):
+        """The heatseeker ball in flight 800-1500 uu up, seeking either
+        goal at up to 1500 uu/s, its last hit 0-3 s ago."""
+        import torch
+        phys = self._still_ball(phys)
+        ball, u = phys.arena.ball, self.u
+        ball.pos = torch.stack([u(-2500, 2500), u(-3000, 3000),
+                                u(800, 1500)], -1)
+        ball.vel = torch.stack([u(-1500, 1500), u(-1500, 1500),
+                                u(-300, 300)], -1)
+        ball.hs_y_target_dir = self._sign()
+        ball.hs_target_speed = u(2900, 4500)
+        ball.hs_time_since_hit = u(0, 3)
+        return phys
+
+    def hs_touch(self, phys):
+        """Car 0 (blue) and car 2 (orange) drive at 1100-1300 uu/s into
+        the resting heatseeker ball from either side, 147-157 uu from its
+        centre, so that both first touch it in the step's first tick (a
+        seeking ball at rest starts at 30% of its target speed); the ball
+        idle or seeking, its last hit 0-2 s ago (within the minimum
+        speed-up interval or after it); cars 1 and 3 parked out of the
+        way; every car's controls released.  The cars come in 5-20 uu off
+        the ball's line and up to 0.1 rad off its axis: on the line, the
+        friction direction of the contact is rounding noise (ROADMAP
+        Queue 3)."""
+        import torch
+        from reinforcement_learning_torch import maths
+        phys = self._still_ball(phys)
+        cars, ball, u = phys.arena.cars, phys.arena.ball, self.u
+        bx, by = u(-2500, 2500), u(-3000, 3000)
+        z = torch.zeros_like(bx)
+        ball.pos = torch.stack([bx, by, z + 93.15], -1)
+        ball.vel = torch.zeros_like(ball.vel)
+        ball.hs_y_target_dir = torch.floor(u(0, 3)).clamp(max=2) - 1
+        ball.hs_target_speed = u(2900, 4500)
+        ball.hs_time_since_hit = u(0, 2)
+        for c, side in ((0, -1.0), (2, 1.0)):
+            yaw = (torch.pi if side > 0 else 0.0) + u(-0.1, 0.1)
+            speed = u(1100, 1300)
+            cars.pos[:, c] = torch.stack(
+                [bx + side * u(147, 157), by + self._sign() * u(5, 20),
+                 z + 17.0], -1)
+            cars.vel[:, c] = torch.stack([speed * torch.cos(yaw),
+                                          speed * torch.sin(yaw), z], -1)
+            cars.rot[:, c] = maths.euler_to_rotmat(yaw)
+        far = -torch.sign(bx) * 3500.0
+        cars.pos[:, 1] = torch.stack([far, by, z + 17.0], -1)
+        cars.pos[:, 3] = torch.stack([far, by - torch.sign(by) * 800.0,
+                                      z + 17.0], -1)
+        # no jump, flip or control left over from the random steps
+        for f in ("is_jumping", "has_jumped", "has_double_jumped",
+                  "has_flipped", "is_flipping", "is_auto_flipping",
+                  "is_demoed"):
+            getattr(cars, f)[:] = False
+        for f in ("jump_time", "flip_time", "air_time",
+                  "air_time_since_jump", "auto_flip_timer", "ang_vel",
+                  "controls", "last_controls"):
+            getattr(cars, f)[:] = 0.0
+        cars.vel[:, 1] = cars.vel[:, 3] = 0.0
+        return phys
+
+    def hs_backwall(self, phys):
+        """The heatseeker ball 40-60 uu short of a back wall beside the
+        goal (|x| 1300-2600, 300-900 uu up), flying into it at 1500-2500
+        uu/s while it seeks that wall's goal."""
+        import torch
+        phys = self._still_ball(phys)
+        ball, u = phys.arena.ball, self.u
+        sy = self._sign()
+        ball.pos = torch.stack([self._sign() * u(1300, 2600),
+                                sy * (5120.0 - 91.25 - u(40, 60)),
+                                u(300, 900)], -1)
+        ball.vel = torch.stack([u(-200, 200), sy * u(1500, 2500),
+                                u(-100, 100)], -1)
+        ball.hs_y_target_dir = sy
+        ball.hs_target_speed = u(2000, 4000)
+        return phys
+
+    def _puck(self, phys):
+        """A copy with the puck tilted up to 0.5 rad and spinning; also
+        returns the height at which its rim meets the floor."""
+        import torch
+        from reinforcement_learning_torch import maths
+        phys = self.copy(phys)
+        ball, u = phys.arena.ball, self.u
+        ball.rot = maths.euler_to_rotmat(u(-3, 3), u(-0.5, 0.5),
+                                         u(-0.5, 0.5))
+        ball.ang_vel = torch_stack3(u(-3, 3), u(-3, 3), u(-3, 3))
+        az = ball.rot[:, 2, 2].abs()
+        rest = 114.25 * torch.sqrt(1 - az * az) + 31.25 * az
+        return phys, rest
+
+    def snow_floor(self, phys):
+        """A tumbling snowday puck dropped at 300 uu/s on the floor of the
+        midfield from 1-5 uu above it."""
+        phys, rest = self._puck(phys)
+        u = self.u
+        phys.arena.ball.pos = torch_stack3(u(-2500, 2500), u(-3500, 3500),
+                                           rest + u(1, 5))
+        phys.arena.ball.vel = torch_stack3(u(-500, 500), u(-500, 500),
+                                           u(-320, -280))
+        return phys
+
+    def snow_wall(self, phys):
+        """The tilted, spinning puck slides into a side wall (even arenas)
+        or into a corner (odd) at an angle, 1-5 uu above the floor."""
+        import torch
+        phys, rest = self._puck(phys)
+        u = self.u
+        sx, sy = self._sign(), self._sign()
+        side = torch.arange(E, device=self.dev) % 2 == 0
+        phys.arena.ball.pos = torch_stack3(
+            sx * torch.where(side, u(3940, 3960), u(3880, 3895)),
+            torch.where(side, u(-2000, 2000), sy * u(3985, 3995)),
+            rest + u(1, 5))
+        phys.arena.ball.vel = torch_stack3(
+            sx * torch.where(side, u(1000, 1400), u(800, 1000)),
+            torch.where(side, u(-600, 600), sy * u(800, 1000)),
+            u(-50, 0))
+        return phys
+
+
+def torch_stack3(x, y, z):
+    import torch
+    return torch.stack([x, y, z], -1)
+
+
+class SnowContacts:
+    """While open, records per arena whether the plain version's snowday
+    puck contact (``ctick._resolve_ball_world_snowday``) touched the floor
+    or a wall at any tick."""
+
+    def __enter__(self):
+        import torch
+        from reinforcement_learning_torch.ops import ctick
+        self.floor = self.wall = None
+        self._fn = ctick._resolve_ball_world_snowday
+
+        def spy(*args, **kw):
+            out = self._fn(*args, **kw)
+            touch, n = out[3], out[4]
+            # the mean of the live rows' normals: only the floor's points
+            # up, only walls' have a horizontal part
+            floor = touch & (n[2] > 0.1)
+            wall = touch & (torch.sqrt(n[0] * n[0] + n[1] * n[1]) > 0.1)
+            self.floor = floor if self.floor is None else self.floor | floor
+            self.wall = wall if self.wall is None else self.wall | wall
+            return out
+        ctick._resolve_ball_world_snowday = spy
+        return self
+
+    def __exit__(self, *exc):
+        from reinforcement_learning_torch.ops import ctick
+        ctick._resolve_ball_world_snowday = self._fn
+
+
 class LiveCandidates:
     """While open, records the facet-arena contact candidates that the
     plain version's 4-slot retention (``ctick.keep_diverse4``) sees live:
@@ -479,58 +657,36 @@ class LiveCandidates:
 def kernel_vs_plain(name, phys, params, teams, ctl, r, allowed, check=None):
     """One env step of the kernel and of the plain version on the card from
     ``phys``; ``check(phys, got, live)`` shows the state's contact
-    happened, ``live`` being the plain step's ``LiveCandidates``.  Returns
-    the worst float deviation."""
+    happened, ``live`` being the plain step's ``LiveCandidates`` (with its
+    ``SnowContacts`` as ``live.snow`` and its output as ``live.want``).
+    Prints the kernel's time on the state.  Returns the worst float
+    deviation."""
     import torch
     from reinforcement_learning_torch.ops import arena_step as A
     from reinforcement_learning_torch.ops import ctick
     consts = A._consts(params, tuple(int(t) for t in teams))
     got = A.arena_step(phys, ctl, r, params, teams)
-    with LiveCandidates() as live:
+    with LiveCandidates() as live, SnowContacts() as live.snow:
         want = ctick.arena_step_reference(phys, ctl, r, consts)
+    live.want = want
     torch.cuda.synchronize()
     if check is not None:
         check(phys, got, live)
-    return compare(name, got, want, allowed)
+    err = compare(name, got, want, allowed)
+    ms = cuda_ms(lambda: A.arena_step(phys, ctl, r, params, teams), reps=5)
+    print(f"[{name}] arena_step on this state: {ms:.4f} ms (pack, kernel, "
+          "unpack; CUDA events)")
+    return err
 
 
-def drive_path(label, env, params, card, gen, T_steps):
-    """Collect ``T_steps`` env steps of 1024 x 2v2 on ``env`` through the
-    normal entry points, with the kernel's launch count set to 0 just
-    before and read just after; check the trajectory; hold the kernel to
-    the plain version on the end state, count the work its inputs need and
-    time the parts.  Returns the path's ``kernels`` entry."""
-    import torch
+def bench_ppo_config():
+    from bench_torch import BENCH_PPO
     from reinforcement_learning_torch.learn.ppo import PPOConfig
-    from reinforcement_learning_torch.learn.trainer import (Trainer,
-                                                            TrainerConfig)
-    from reinforcement_learning_torch.ops import arena_step as A
-    from reinforcement_learning_torch.ops import ctick, opcount
-    teams = tuple(int(t) for t in env.teams_np)
-    consts = A._consts(params, teams)
-    lib = A._library()
-    ppo_cfg = PPOConfig(policy_layers=(384, 384, 384),
-                        critic_layers=(384, 384, 384),
-                        shared_head_layers=(384, 384), half_precision=True)
-    trainer = Trainer(env, ppo_cfg, TrainerConfig(ts_per_itr=100_000,
-                                                  random_seed=SEED))
-    if trainer.steps_per_itr != T:
-        fail(f"steps_per_itr {trainer.steps_per_itr} != {T}")
-    print(f"[{label}] params {trainer.learner.param_counts()}, arena "
-          f"use_mesh={params.use_mesh} "
-          f"dynamic_wheel_rays={params.dynamic_wheel_rays}")
-    tstate = trainer.init(SEED)
-    tstate, _ = trainer.collect(tstate, T_steps)            # warm-up
-    torch.cuda.synchronize()
-    A.arena_step.launches = 0
-    t0 = time.perf_counter()
-    tstate, traj = trainer.collect(tstate, T_steps)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = A.arena_step.launches
-    if launches != T_steps:
-        fail(f"{label}: arena_step launched {launches} times in {T_steps} "
-             "env steps")
+    return PPOConfig(**BENCH_PPO)
+
+
+def check_traj(label, env, traj, T_steps):
+    import torch
     P = CARS
     shapes = dict(obs=(T_steps, E, P, env.obs_size),
                   mask=(T_steps, E, P, 90), action=(T_steps, E, P),
@@ -549,16 +705,63 @@ def drive_path(label, env, params, card, gen, T_steps):
         fail(f"{label}: an action outside its mask was sampled")
     if not bool((traj["old_logp"] <= 0).all()):
         fail(f"{label}: log-probabilities above 0")
-    steps_per_s = T_steps * E * P / wall
-    print(f"[{label}] collect: {T_steps} env steps x {E} arenas x {P} "
+
+
+def drive_path(label, env, params, card, gen, T_steps):
+    """Collect ``T_steps`` env steps of 1024 x 2v2 on ``env`` through the
+    normal entry points, with the kernel's launch count set to 0 just
+    before and read just after; check the trajectory; then ``end_state``
+    on the state it ends in.  Returns the path's ``kernels`` entry."""
+    import torch
+    from reinforcement_learning_torch.learn.trainer import (Trainer,
+                                                            TrainerConfig)
+    from reinforcement_learning_torch.ops import arena_step as A
+    trainer = Trainer(env, bench_ppo_config(),
+                      TrainerConfig(ts_per_itr=100_000, random_seed=SEED))
+    if trainer.steps_per_itr != T:
+        fail(f"steps_per_itr {trainer.steps_per_itr} != {T}")
+    print(f"[{label}] params {trainer.learner.param_counts()}, arena "
+          f"use_mesh={params.use_mesh} "
+          f"dynamic_wheel_rays={params.dynamic_wheel_rays}")
+    tstate = trainer.init(SEED)
+    tstate, _ = trainer.collect(tstate, T_steps)            # warm-up
+    torch.cuda.synchronize()
+    A.arena_step.launches = 0
+    t0 = time.perf_counter()
+    tstate, traj = trainer.collect(tstate, T_steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.arena_step.launches
+    if launches != T_steps:
+        fail(f"{label}: arena_step launched {launches} times in {T_steps} "
+             "env steps")
+    check_traj(label, env, traj, T_steps)
+    steps_per_s = T_steps * E * CARS / wall
+    print(f"[{label}] collect: {T_steps} env steps x {E} arenas x {CARS} "
           f"players in {wall:.3f} s = {steps_per_s:.0f} player-steps/s; "
           f"launches {launches}; goals {int(traj['goal'].sum())}, touches "
           f"{int(traj['touch'].sum())}")
+    return {"launches": launches,
+            **end_state(label, trainer, tstate, traj["action"][-1], params,
+                        card, gen)}
 
-    # kernel vs plain on the state the collection ends in; the plain run
-    # counts the work these inputs need
+
+def end_state(label, trainer, tstate, actions, params, card, gen):
+    """Hold the kernel to the plain version on the state a path ends in,
+    stepped with ``actions``, the plain run counting the work its inputs
+    need (the kernel's bound), and time the kernel, the plain version, the
+    policy sample and the env step there.  Returns ms, plain_ms, bound_ms,
+    bound_by and end_err."""
+    import torch
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.ops import ctick, opcount
+    env = trainer.env
+    teams = tuple(int(t) for t in env.teams_np)
+    consts = A._consts(params, teams)
+    lib = A._library()
+    P = CARS
     phys = tstate.env_states.phys
-    ctl = env.action_parser.parse(traj["action"][-1])
+    ctl = env.action_parser.parse(actions)
     r = torch.randint(0, 4, (E, CARS), generator=gen,
                       device=phys.cars.pos.device, dtype=torch.int32)
     work = opcount.step_work(phys, ctl, r, consts)
@@ -595,16 +798,14 @@ def drive_path(label, env, params, card, gen, T_steps):
     flat_mask = tstate.masks.reshape(E * P, -1)
     policy_ms = cuda_ms(lambda: trainer.learner.sample_actions(
         flat_obs, flat_mask, generator=gen), reps=10)
-    env_ms = cuda_ms(lambda: env.step(tstate.env_states, traj["action"][-1]),
-                     reps=10)
+    env_ms = cuda_ms(lambda: env.step(tstate.env_states, actions), reps=10)
     policy_calls = opcount.count_ops(lambda: trainer.learner.sample_actions(
         flat_obs, flat_mask, generator=gen))[1]
     env_calls = opcount.count_ops(lambda: env.step(tstate.env_states,
-                                           traj["action"][-1]))[1]
-    print(f"[{label}] per env step: collect {wall / T_steps * 1e3:.3f} ms "
-          f"(host clock); policy sample {policy_ms:.3f} ms, env.step "
-          f"{env_ms:.3f} ms of which arena_step {wrapper_ms:.3f} ms "
-          f"(kernel {kernel_ms:.3f} ms) (CUDA events); tensor ops "
+                                                   actions))[1]
+    print(f"[{label}] per env step: policy sample {policy_ms:.3f} ms, "
+          f"env.step {env_ms:.3f} ms of which arena_step {wrapper_ms:.3f} "
+          f"ms (kernel {kernel_ms:.3f} ms) (CUDA events); tensor ops "
           f"dispatched: policy sample {policy_calls}, env.step {env_calls}")
     nbytes = sum(x.numel() * x.element_size()
                  for x in (f, i, u, *outs, ctl_k, r_k))
@@ -619,8 +820,122 @@ def drive_path(label, env, params, card, gen, T_steps):
           f"({nbytes} bytes -> {bytes_ms:.5f} ms, {ops:.4g} fp32 ops these "
           f"inputs need -> {ops_ms:.5f} ms; the branch-free plain version "
           f"runs {work.ops_branch_free:.4g}); card {card}")
-    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "end_err": err}
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "end_err": err}
+
+
+def check_metrics(label, metrics, before, learner):
+    """Every metric finite, the metric keys the JAX trainer's, every
+    parameter changed since ``before``."""
+    import math
+    from reinforcement_learning_torch.learn.ppo import UPDATE_METRICS
+    vals = {k: float(v) for k, v in metrics.items()}
+    bad = [k for k, v in vals.items() if not math.isfinite(v)]
+    if bad:
+        fail(f"{label}: metrics not finite: {bad}")
+    want = set(UPDATE_METRICS) | {
+        "reward_mean", "goal_rate", "touch_rate", "episode_terminals",
+        "return_std", "reward_clip_portion", "value_mean"}
+    if not want <= set(vals):
+        fail(f"{label}: metrics lack {sorted(want - set(vals))}")
+    same = [i for i, (p, q) in enumerate(zip(learner.parameters(), before))
+            if bool((p == q).all())]
+    if same:
+        fail(f"{label}: parameters {same} unchanged by the update")
+    print(f"[{label}] metrics: " + json.dumps(
+        {k: float(f"{v:.4g}") for k, v in vals.items()}))
+
+
+def train_path(card, gen):
+    """The main path: ``Trainer.train_iteration`` at bench.py's shape.  One
+    warm-up iteration, 3 timed ones with the kernel's launch count set to
+    0 before and read after (24 per iteration), then one iteration split
+    into its parts.  Returns the launches of the timed iterations."""
+    import torch
+    from bench_torch import bench_trainer
+    from reinforcement_learning_torch.ops import arena_step as A
+    trainer = bench_trainer(E, "soccar", SEED)
+    if trainer.steps_per_itr != T:
+        fail(f"steps_per_itr {trainer.steps_per_itr} != {T}")
+    params = trainer.env.params
+    if not (params.use_mesh and params.dynamic_wheel_rays):
+        fail("the bench trainer's env is not full fidelity")
+    before = [p.detach().clone() for p in trainer.learner.parameters()]
+    state = trainer.init(SEED)
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    iters = 3
+    A.arena_step.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.arena_step.launches
+    if launches != iters * T:
+        fail(f"train: arena_step launched {launches} times in {iters} "
+             f"iterations of {T} env steps")
+    check_metrics("train", metrics, before, trainer.learner)
+    steps = iters * T * E * CARS
+    print(f"[train] bench shape (1024 x 2v2 soccar, full fidelity, batch "
+          f"50k, 2 epochs): warm-up {warm:.3f} s; {iters} iterations in "
+          f"{wall:.3f} s = {wall / iters:.3f} s/iteration, "
+          f"{steps / wall:.0f} player-steps/s; launches {launches} "
+          f"({launches // iters} per iteration); card {card}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+    (state, traj), t_collect = timed(lambda: trainer.collect(state))
+    (state, data, _), t_prep = timed(lambda: trainer.prepare(state, traj))
+    _, t_update = timed(lambda: trainer.learner.update(
+        data, generator=trainer.generator))
+    total = t_collect + t_prep + t_update
+    print(f"[train] one iteration split (host clock, synchronised after "
+          f"each part): collect {t_collect:.3f} s, values + GAE + Welford "
+          f"{t_prep:.3f} s, update {t_update:.3f} s; total {total:.3f} s "
+          f"({T * E * CARS / total:.0f} player-steps/s)")
+    return launches
+
+
+def mode_path(label, mode, card, gen):
+    """One ``train_iteration`` of 1024 x 2v2 in a game mode at the bench
+    widths, with the launch count set to 0 before and read after; then
+    ``end_state`` on the state it ends in.  Returns the mode's ``kernels``
+    entry."""
+    import torch
+    from bench_torch import bench_trainer
+    from reinforcement_learning_torch.ops import arena_step as A
+    trainer = bench_trainer(E, mode, SEED)
+    before = [p.detach().clone() for p in trainer.learner.parameters()]
+    state = trainer.init(SEED)
+    A.arena_step.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.arena_step.launches
+    if launches != T:
+        fail(f"{label}: arena_step launched {launches} times in one "
+             f"iteration of {T} env steps")
+    check_metrics(label, metrics, before, trainer.learner)
+    ball = state.env_states.phys.ball
+    print(f"[{label}] one train_iteration (1024 x 2v2 {mode}, full "
+          f"fidelity): {wall:.3f} s including first use; launches "
+          f"{launches}; arenas seeking a goal at the end "
+          f"{int((ball.hs_y_target_dir != 0).sum())}, target speed mean "
+          f"{float(ball.hs_target_speed.mean()):.1f}")
+    actions, _ = trainer.learner.sample_actions(
+        state.obs.reshape(E * CARS, -1), state.masks.reshape(E * CARS, -1),
+        generator=gen)
+    return {"launches": launches,
+            **end_state(label, trainer, state, actions.reshape(E, CARS),
+                        trainer.env.params, card, gen)}
 
 
 def main():
@@ -856,23 +1171,129 @@ def main():
         err["full"] = max(err["full"], kernel_vs_plain(
             name, phys, full, teams, ctl, ridx(), one, check))
 
-    # 4. the paths --------------------------------------------------------
+    # 4. game modes: kernel vs plain -------------------------------------
+    def mode_state(mode, seed):
+        env = RocketLeagueEnv(EnvConfig(num_envs=E, team_size=2,
+                                        game_mode=mode, device="cuda"))
+        st, _, _ = env.reset(seed)
+        for _ in range(6):
+            act = torch.randint(0, env.num_actions, (E, CARS),
+                                generator=gen, device=dev)
+            st, _ = env.step(st, act)
+        return env.params, st.phys
+
+    def share(mask):
+        return int(mask.sum()), float(mask.float().mean())
+
+    def event(name, what, mask):
+        n, frac = share(mask)
+        print(f"[{name}] {what} in {n} of {E} arenas")
+        if frac < 0.9:
+            fail(f"{name}: {what} in only {n} of {E} arenas (90% needed)")
+
+    def touched(phys, out):
+        """(E, C): the car touched the ball during the step."""
+        cars = out.arena.cars
+        return cars.ball_hit_valid & (cars.ball_hit_tick
+                                      >= phys.arena.tick_count[:, None])
+
+    def steered(phys, got, live):
+        ball, want = phys.arena.ball, live.want.arena.ball
+        dt = 8 / 120.0
+        ran = (want.hs_time_since_hit - ball.hs_time_since_hit
+               - dt).abs() < 1e-4
+        event("hs_steer", "the ball steered every tick, untouched",
+              ran & ~touched(phys, live.want).any(-1))
+
+    def both_touched(phys, got, live):
+        # the plain step's first tick: car 0 (blue) and car 2 (orange)
+        # both touch the ball, the state's touches being older
+        tick0 = phys.arena.tick_count[:, None]
+        z = torch.zeros(E, CARS, 8, device=dev)
+        r0 = torch.zeros(E, CARS, dtype=torch.int32, device=dev)
+        one = ctick.arena_step_reference(phys, z, r0, hs_consts, 1, 0)
+        c1 = one.arena.cars
+        both_first = (c1.ball_hit_valid[:, [0, 2]]
+                      & (c1.ball_hit_tick[:, [0, 2]] == tick0)).all(-1)
+        ball0, ball1 = phys.arena.ball, one.arena.ball
+        within = ball0.hs_time_since_hit < 1.0
+        print(f"[hs_touch] last hit within the minimum speed-up interval "
+              f"in {int(within.sum())} arenas; target speed raised in the "
+              f"first tick in "
+              f"{int((ball1.hs_target_speed > ball0.hs_target_speed).sum())}"
+              f"; target set by orange in "
+              f"{int((ball1.hs_y_target_dir == -1).sum())}")
+        event("hs_touch", "both teams first touched the ball in the same "
+              "tick", both_first)
+
+    def flipped(name):
+        def check(phys, got, live):
+            event(name, "a back-wall hit flipped the target",
+                  live.want.arena.ball.hs_y_target_dir
+                  == -phys.arena.ball.hs_y_target_dir)
+        return check
+
+    def on_floor(phys, got, live):
+        event("snow_floor", "the puck touched the floor (ground stick)",
+              live.snow.floor)
+
+    def on_wall(phys, got, live):
+        event("snow_wall", "the puck touched a side or corner wall",
+              live.snow.wall)
+
+    hs_full, phys_hs = mode_state("heatseeker", SEED + 2)
+    snow_full, phys_snow = mode_state("snowday", SEED + 3)
+    if not (hs_full.use_mesh and snow_full.use_mesh):
+        fail("the game-mode envs are not full fidelity")
+    hs_plane = ArenaParams(num_cars=CARS, use_mesh=False,
+                           dynamic_wheel_rays=False, game_mode="heatseeker")
+    hs_consts = A._consts(hs_full, tuple(int(t) for t in teams))
+    err["heatseeker"] = err["snowday"] = 0.0
+    for name, mode, phys, params, ctl, check in (
+            ("hs_steer", "heatseeker", S.hs_flight(phys_hs), hs_full,
+             controls(), steered),
+            ("hs_touch", "heatseeker", S.hs_touch(phys_hs), hs_full,
+             ctl_still, both_touched),
+            ("hs_backwall", "heatseeker", S.hs_backwall(phys_hs), hs_full,
+             ctl_still, flipped("hs_backwall")),
+            ("hs_backwall_plane", "heatseeker", S.hs_backwall(phys_hs),
+             hs_plane, ctl_still, flipped("hs_backwall_plane")),
+            ("snow_floor", "snowday", S.snow_floor(phys_snow), snow_full,
+             ctl_still, on_floor),
+            ("snow_wall", "snowday", S.snow_wall(phys_snow), snow_full,
+             ctl_still, on_wall)):
+        err[mode] = max(err[mode], kernel_vs_plain(
+            name, phys, params, teams, ctl, ridx(), 0, check))
+
+    # 5. the collection paths --------------------------------------------
     entries = {}
     for label, env, params in (("plane", penv, plane), ("full", fenv, full)):
         entries[label] = drive_path(label, env, params, card, gen, T)
         err[label] = max(err[label], entries[label].pop("end_err"))
+    del penv, fenv
 
-    # 5. small collection on the card vs the plain path on the CPU -------
+    # 6. the main path: train_iteration at bench shape --------------------
+    entries["full"]["launches"] = train_path(card, gen)
+
+    # 7. one train_iteration in each game mode ---------------------------
+    for mode in ("heatseeker", "snowday"):
+        entries[mode] = mode_path(mode, mode, card, gen)
+        err[mode] = max(err[mode], entries[mode].pop("end_err"))
+
+    # 8. small collection on the card vs the plain path on the CPU -------
     small_collect_agrees(dev, full)
 
     kernels = []
-    for label, what in (("plane", "plane arena"),
-                        ("full", "full fidelity: facet arena, dynamic "
-                                 "wheel rays")):
+    for label, what, where in (
+            ("plane", "soccar, plane arena", "pallas_step.py:126"),
+            ("full", "soccar, full fidelity: facet arena, dynamic wheel "
+                     "rays", "pallas_step.py:126"),
+            ("heatseeker", "heatseeker, full fidelity", "ctick.py:2415"),
+            ("snowday", "snowday, full fidelity", "ctick.py:1485")):
         kernels.append({
             "name": f"arena_step ({what})", "route": "cuda",
             "source": "reinforcement_learning_torch/csrc/arena_step.cu",
-            "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
+            "replaces": f"reinforcement_learning_tpu/ops/{where}",
             **entries[label], "max_abs_err": err[label],
             "library_ms": None})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")

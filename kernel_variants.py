@@ -13,9 +13,10 @@ same source with the full-fidelity branches compiled out (``plane_only``,
 
 Every variant steps the same inputs: 1024 arenas x 2v2 after kickoff and 6
 env steps of random controls (stepped by the first variant), once on the
-plane arena and once at full fidelity (the default ``ArenaParams``).  A
-variant whose ``Params`` struct is shorter than today's gets its leading
-part (an earlier kernel, before the full-fidelity tail) and runs the plane
+plane arena and once at full fidelity (the default ``ArenaParams``), in
+soccar.  A variant whose ``Params`` struct is shorter than today's gets
+its leading part: a kernel from before the game modes (its struct ends
+with the facet tables) runs both, one from before full fidelity the plane
 arena only, as does a plane-only build.  Times come from CUDA events, 10
 launches per sample, the variants taken in the order A B .. B A, twice.
 Prints each variant's ptxas line for the 4-car kernel, its largest
@@ -138,12 +139,15 @@ def main(argv):
             ctl_k = ctl.permute(2, 1, 0).contiguous()
             r_k = r.transpose(0, 1).contiguous()
             prm = A.pack_params(params, teams)
+            # bytes up to the end of the full-fidelity tail
+            full_bytes = prm.nbytes - 4 * len(A._pack_game_mode(
+                A._consts(params, teams)))
             stream = torch.cuda.current_stream().cuda_stream
             runs = {}
             for label, src, macros in variants:
                 lib = libs[label]
                 n = lib.arena_step_params_bytes()
-                if n != prm.nbytes and cfg != "plane":
+                if n < full_bytes and cfg != "plane":
                     continue
                 if "ARENA_STEP_PLANE_ONLY" in macros and cfg != "plane":
                     continue

@@ -1,6 +1,7 @@
 // arena_step.cu: one env step (tick_skip physics ticks) of every arena in one
 // launch, on the analytic-plane soccar arena or at full fidelity (the facet
-// arena of facets.cuh plus the 4 true planes, and dynamic wheel rays).
+// arena of facets.cuh plus the 4 true planes, and dynamic wheel rays), in
+// soccar, heatseeker or snowday (the game mode is a field of Params).
 //
 // Replaces the TPU kernel `pallas_arena_step` (reinforcement_learning_tpu/
 // ops/pallas_step.py:85, the pl.pallas_call at :126), whose body is
@@ -153,6 +154,33 @@ constexpr float ARENA_HEIGHT = 2048.0f;
 __device__ const float SHEET_CLIP[2] = {(float)(-152.0 + 1.0),
                                         (float)(-256.0 + 1.0)};
 constexpr int NRESPAWN = 4;
+
+// Game modes on the soccar arena, in ctick.GAME_MODES order, and their
+// constants (constants.py Heatseeker, Snowday; RLConst.h:151-185), each the
+// float the plain version's Python scalar becomes.
+enum { MODE_SOCCAR = 0, MODE_HEATSEEKER = 1, MODE_SNOWDAY = 2 };
+constexpr double PI_D = 3.14159265358979323846;
+constexpr float TWO_PI_F = (float)(PI_D * 2);
+constexpr float HALF_PI_F = (float)(PI_D / 2);
+constexpr float UE3_TO_INTS = (float)(32768.0 / PI_D);
+constexpr float UE3_BACK = (float)((1.0 / (32768.0 / PI_D)) * 4.0);
+constexpr float HS_TARGET_Y = 5120.0f;
+constexpr float HS_TARGET_Z = 320.0f;
+constexpr float HS_MAX_SPEED = 4600.0f;
+constexpr float HS_HORIZONTAL_BLEND = 1.45f;
+constexpr float HS_VERTICAL_BLEND = 0.78f;
+constexpr float HS_SPEED_BLEND = 0.3f;
+constexpr float HS_MAX_TURN_PITCH = (float)(7000.0 * PI_D / 32768.0);
+constexpr float HS_TARGET_SPEED_INCREMENT = 85.0f;
+constexpr float HS_MIN_SPEEDUP_INTERVAL = 1.0f;
+constexpr float HS_WALL_BOUNCE_NORMAL = 0.5f;
+constexpr float HS_WALL_BOUNCE_Y = (float)(5120.0 - 300.0);
+constexpr float HS_WALL_BOUNCE_FORCE_SCALE = (float)(1.0 / 3.0);
+constexpr float HS_WALL_BOUNCE_UP = 0.3f;
+constexpr float HS_WALL_BOUNCE_KEEP = (float)(1.0 - 0.3);
+constexpr float PUCK_RADIUS = 114.25f;
+constexpr float PUCK_HALF_HEIGHT = (float)(62.5 / 2);
+
 constexpr int WALL_YN = 4, WALL_YP = 5, GOAL_XN = 10, GOAL_XP = 11,
               GOAL_CEIL = 12, NET_YN = 13, NET_YP = 14;
 
@@ -203,6 +231,11 @@ struct Params {
   float he_core[3];                 // half extents - mesh margin
   float core_corners_local[8][3];   // offset + signs * he_core
   facets::Tables facets;
+  // the game mode (MODE_*) and the snowday puck's values folded in double
+  // precision like the plain version's: its contact break gap, inverse
+  // inertia across and along its axis, and ground-stick speed per tick
+  float game_mode;
+  float snow_break_gap, snow_inv_i_perp, snow_inv_i_axis, snow_stick;
 };
 
 // ---------------------------------------------------------------------------
@@ -492,8 +525,10 @@ __device__ __forceinline__ V3 plane_n(const float* pl) {
 // (kernel_variants.py).
 #ifdef ARENA_STEP_PLANE_ONLY
 #define FLAG_ON(x) false
+#define GAME_MODE(P) MODE_SOCCAR
 #else
 #define FLAG_ON(x) ((x) != 0.f)
+#define GAME_MODE(P) ((int)(P).game_mode)
 #endif
 
 // Planes in the world: in mesh mode only the 4 true static planes, which
@@ -1182,11 +1217,12 @@ __device__ void resolve_car_world(const Params& P, const Car& k,
 
 template <int NC>
 __device__ void resolve_ball_world(const Params& P, Arena<NC>& a,
-                                   V3 ball_vel_pre, V3& push) {
+                                   V3 ball_vel_pre, V3& push, int& touch,
+                                   V3& navg) {
   bool valid[NPLANES];
   plane_validity(a.bpos, valid);
   float num = 0.f, max_depth = 0.f;
-  V3 navg = vzero();
+  navg = vzero();
   for (int p = 0; p < NPLANES; ++p) {
     const float* pl = P.planes[p];
     float gap = plane_dist(pl, a.bpos) - P.ball_radius;
@@ -1197,7 +1233,8 @@ __device__ void resolve_ball_world(const Params& P, Arena<NC>& a,
     max_depth = fmaxf(max_depth, act ? -gap : 0.f);
   }
   push = vzero();
-  if (!(num > 0.f)) return;
+  touch = num > 0.f;
+  if (!touch) return;
   navg = navg * (1.0f / fmaxf(num, 1.0f));
   V3 r_bt = navg * P.neg_ball_r_bt;
   M3 iw = diag3(P.ball_inv_inertia);
@@ -1505,9 +1542,10 @@ template <int NC>
 __device__ __noinline__ void resolve_ball_world_mesh(const Params& P,
                                                      Arena<NC>& a,
                                                      V3 ball_vel_pre,
-                                                     V3& push) {
+                                                     V3& push, int& touch,
+                                                     V3& navg) {
   float num = 0.f, max_depth = 0.f;
-  V3 navg = vzero();
+  navg = vzero();
   for (int p = 0; p < NTRUE_PLANES; ++p) {
     const float* pl = P.planes[p];
     float gap = plane_dist(pl, a.bpos) - P.ball_radius;
@@ -1527,7 +1565,8 @@ __device__ __noinline__ void resolve_ball_world_mesh(const Params& P,
     max_depth = fmaxf(max_depth, keep.occ[s] ? -p[3] : 0.f);
   }
   push = vzero();
-  if (!(num > 0.f)) return;
+  touch = num > 0.f;
+  if (!touch) return;
   navg = navg * (1.0f / fmaxf(num, 1.0f));
   V3 r_bt = navg * P.neg_ball_r_bt;
   M3 iw = diag3(P.ball_inv_inertia);
@@ -1545,7 +1584,8 @@ __device__ __noinline__ void resolve_ball_world_mesh(const Params& P,
 template <int NC>
 __device__ void resolve_car_ball(const Params& P, Arena<NC>& a, const M3* iw,
                                  const bool* alive, const V3* cars_vel_pre,
-                                 V3 ball_vel_pre, V3& ball_cache_dv) {
+                                 V3 ball_vel_pre, V3& ball_cache_dv,
+                                 int* touched) {
   const float* he = P.half_extents;
   M3 iwb = diag3(P.ball_inv_inertia);
   const float mu = CARBALL_FRICTION;
@@ -1565,6 +1605,7 @@ __device__ void resolve_car_ball(const Params& P, Arena<NC>& a, const M3* iw,
     V3 delta = bpos - closest;
     float dist = norm(delta);
     bool touching = (dist < P.car_ball_touch) & alive[c];
+    touched[c] = touching ? 1 : 0;
     V3 imp_total = vzero();
     if (touching) {
       V3 n = dist > 1e-6f ? normalize(delta) : normalize(bpos - box_center);
@@ -1649,6 +1690,156 @@ __device__ void resolve_car_ball(const Params& P, Arena<NC>& a, const M3* iw,
   }
   a.bvel = a.bvel + sum_imp * (P.inv_ball_mass * BT_TO_UU);
   a.bang = a.bang + matvec(iwb, sum_rimp);
+}
+
+// ---------------------------------------------------------------------------
+// Game modes (ctick._resolve_ball_world_snowday, _wrap, _round_angle_ue3,
+// _hs_steer, _hs_on_hit, _hs_wall_bounce).  Each hook is out of line and
+// runs behind the mode test, so soccar keeps its registers and stack.
+
+// The snowday puck against the analytic planes, in either arena (the puck
+// never meets the facet arena): the merged contact with the exact support
+// distance of its cylinder per plane, its solid-cylinder inertia turned to
+// the world, 10 solver passes.  Every plane is a row, masked by its
+// validity and its gap.
+template <int NC>
+__device__ __noinline__ void resolve_ball_world_snowday(const Params& P,
+                                                        Arena<NC>& a,
+                                                        V3 ball_vel_pre,
+                                                        V3& push, int& touch,
+                                                        V3& navg) {
+  bool valid[NPLANES];
+  plane_validity(a.bpos, valid);
+  const V3 axis = v3(a.brot.m[0][2], a.brot.m[1][2], a.brot.m[2][2]);
+  float num = 0.f, max_depth = 0.f, supp_sum = 0.f;
+  navg = vzero();
+  for (int p = 0; p < NPLANES; ++p) {
+    const float* pl = P.planes[p];
+    const V3 pn = plane_n(pl);
+    const float adn = dot(axis, pn);
+    const float support = PUCK_RADIUS * sqrtf(fmaxf(1.f - adn * adn, 0.f)) +
+                          PUCK_HALF_HEIGHT * fabsf(adn);
+    const float gap = plane_dist(pl, a.bpos) - support;
+    const bool act = valid[p] & (gap < P.snow_break_gap);
+    const float actf = act ? 1.f : 0.f;
+    num = num + actf;
+    navg = navg + pn * actf;
+    supp_sum = supp_sum + support * actf;
+    max_depth = fmaxf(max_depth, act ? -gap : 0.f);
+  }
+  push = vzero();
+  touch = num > 0.f;
+  if (!touch) return;
+  const float inv_n = 1.0f / fmaxf(num, 1.0f);
+  navg = navg * inv_n;
+  const V3 r_bt = navg * (-(supp_sum * inv_n) * UU_TO_BT);
+  const M3 iw = inv_inertia_world(a.brot, P.snow_inv_i_perp,
+                                  P.snow_inv_i_perp, P.snow_inv_i_axis);
+  V3 dv_bt, dw;
+  contact_vs_static(a.bvel * UU_TO_BT, a.bang, r_bt, navg, P.inv_ball_mass,
+                    iw, P.ball_world_restitution, P.ball_world_friction,
+                    ball_vel_pre * UU_TO_BT, a.bang, 10, dv_bt, dw);
+  a.bvel = a.bvel + dv_bt * BT_TO_UU;
+  a.bang = a.bang + dw;
+  push = navg * (fmaxf(max_depth, 0.f) * SOLVER_ERP2);
+}
+
+// Math::WrapNormalizeFloat into [-mm, mm]; mm2 = 2 mm.
+__device__ __forceinline__ float wrap_angle(float x, float mm, float mm2) {
+  float r = fmodf(x, mm2);
+  r = r > mm ? r - mm2 : r;
+  return r < -mm ? r + mm2 : r;
+}
+
+// Math::RoundAngleUE3: the float -> int conversion truncates toward zero
+// and >> is arithmetic on a negative int, as the plain version's
+// .to(int32) and >> are.
+__device__ __forceinline__ float round_angle_ue3(float ang) {
+  const int r = (int)(ang * UE3_TO_INTS) >> 2;
+  return (float)(r & (0x4000 - 1)) * UE3_BACK;
+}
+
+// Ball::_PreTickUpdate, heatseeker: while seeking, turn the velocity toward
+// the target goal point, quantise its yaw and pitch, and blend the speed
+// toward the target speed.
+template <int NC>
+__device__ __noinline__ void hs_steer(const Params& P, Arena<NC>& a) {
+  const float ytd = a.hs[0];
+  if (!(ytd != 0.f)) return;
+  const V3 vel = a.bvel;
+  const float speed = norm(vel);
+  const float d2 = sqrtf(vel.x * vel.x + vel.y * vel.y);
+  const float v_yaw = atan2f(vel.y, vel.x);
+  const float v_pitch = atan2f(vel.z, d2);
+  const float gx = 0.f - a.bpos.x;
+  const float gy = HS_TARGET_Y * ytd - a.bpos.y;
+  const float gz = HS_TARGET_Z - a.bpos.z;
+  const float g_yaw = atan2f(gy, gx);
+  const float g_pitch = atan2f(gz, sqrtf(gx * gx + gy * gy));
+  const float d_yaw = wrap_angle(g_yaw - v_yaw, PI_F, TWO_PI_F);
+  const float d_pitch = wrap_angle(g_pitch - v_pitch, HALF_PI_F, PI_F);
+  const float f = (speed / HS_MAX_SPEED) * P.dt;
+  float new_yaw = wrap_angle(v_yaw + d_yaw * f * HS_HORIZONTAL_BLEND, PI_F,
+                             TWO_PI_F);
+  float new_pitch = clampf(
+      wrap_angle(v_pitch + d_pitch * f * HS_VERTICAL_BLEND, HALF_PI_F, PI_F),
+      -HS_MAX_TURN_PITCH, HS_MAX_TURN_PITCH);
+  new_yaw = round_angle_ue3(new_yaw);
+  new_pitch = round_angle_ue3(new_pitch);
+  const float new_speed = speed + (a.hs[1] - speed) * HS_SPEED_BLEND;
+  const float cp = cosf(new_pitch), sp = sinf(new_pitch);
+  a.bvel = v3(cp * cosf(new_yaw) * new_speed, cp * sinf(new_yaw) * new_speed,
+              sp * new_speed);
+  a.hs[2] = a.hs[2] + P.dt;
+}
+
+// Ball::_OnHit, heatseeker: once per touching car in car order, each call
+// reading the one before: the toucher's team sets the target goal, and the
+// target speed rises where the target flips after the minimum interval (or
+// from idle).  The touched flags and the fold's state are int and float,
+// never bool arrays (a bool flag array written in one pass and read in the
+// next is what nvcc 12.9 -O3 once miscompiled in car_car).
+template <int NC>
+__device__ __noinline__ void hs_on_hit(const Params& P, Arena<NC>& a,
+                                       const int* touched) {
+  float ytd = a.hs[0], tspeed = a.hs[1], tsince = a.hs[2];
+#pragma unroll 1
+  for (int c = 0; c < NC; ++c) {
+    const int t = touched[c];
+    const float d = P.teams[c] == 0.f ? 1.f : -1.f;
+    const int can_increase =
+        (tsince > HS_MIN_SPEEDUP_INTERVAL ? 1 : 0) | (ytd == 0.f ? 1 : 0);
+    const int speed_up = t & can_increase & (ytd != d ? 1 : 0);
+    ytd = t ? d : ytd;
+    tspeed = speed_up ? fminf(tspeed + HS_TARGET_SPEED_INCREMENT, HS_MAX_SPEED)
+                      : tspeed;
+    tsince = speed_up ? 0.f : tsince;
+  }
+  a.hs[0] = ytd;
+  a.hs[1] = tspeed;
+  a.hs[2] = tsince;
+}
+
+// Ball::_OnWorldCollision, heatseeker: a world contact deep in the target's
+// back wall flips the target and adds a goal-ward bounce to the velocity
+// cache.
+template <int NC>
+__device__ __noinline__ void hs_wall_bounce(Arena<NC>& a, int touch, V3 navg,
+                                            V3& cache) {
+  const float ytd = a.hs[0];
+  const int flip = touch & (ytd != 0.f ? 1 : 0) &
+                   (navg.y * ytd <= -HS_WALL_BOUNCE_NORMAL ? 1 : 0) &
+                   (a.bpos.y * ytd >= HS_WALL_BOUNCE_Y ? 1 : 0);
+  if (!flip) return;
+  const float new_ytd = -ytd;
+  a.hs[0] = new_ytd;
+  const V3 to_goal = normalize(v3(-a.bpos.x, HS_TARGET_Y * new_ytd - a.bpos.y,
+                                  HS_TARGET_Z - a.bpos.z));
+  const float mag = norm(a.bvel) * HS_WALL_BOUNCE_FORCE_SCALE;
+  cache = cache + v3(to_goal.x * HS_WALL_BOUNCE_KEEP * mag,
+                     to_goal.y * HS_WALL_BOUNCE_KEEP * mag,
+                     (to_goal.z * HS_WALL_BOUNCE_KEEP + HS_WALL_BOUNCE_UP) *
+                         mag);
 }
 
 // ---------------------------------------------------------------------------
@@ -2117,6 +2308,7 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
       air_acc[NC], air_ang[NC], jump_acc[NC], ar_acc[NC], ar_ang[NC],
       boost_acc[NC];
   const bool mesh = FLAG_ON(P.use_mesh);
+  const int mode = GAME_MODE(P);
 
 #pragma unroll 1
   for (int c = 0; c < NC; ++c) {
@@ -2216,6 +2408,9 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
     k.ang_vel = k.ang_vel + total_ang * dt;
   }
 
+  // ball pre-tick: heatseeker steering
+  if (mode == MODE_HEATSEEKER) hs_steer(P, a);
+
   // ball: sleeping, gravity and drag
   bool ball_awake = (norm(a.bvel) > 0.f) | (norm(a.bang) > 0.f);
   const V3 ball_vel_pre = a.bvel;
@@ -2239,10 +2434,28 @@ __device__ void tick(const Params& P, Arena<NC>& a, const int* respawn_idx) {
   }
 
   V3 ball_cache_dv;
-  resolve_car_ball(P, a, iw, alive, vel_pre, ball_vel_pre, ball_cache_dv);
-  V3 bw_push;
-  if (mesh) resolve_ball_world_mesh(P, a, ball_vel_pre, bw_push);
-  else resolve_ball_world(P, a, ball_vel_pre, bw_push);
+  int touched[NC];
+  resolve_car_ball(P, a, iw, alive, vel_pre, ball_vel_pre, ball_cache_dv,
+                   touched);
+  // Ball::_OnHit: heatseeker retargeting, once per touching car
+  if (mode == MODE_HEATSEEKER) hs_on_hit(P, a, touched);
+
+  V3 bw_push, bw_navg;
+  int bw_touch;
+  if (mode == MODE_SNOWDAY)
+    resolve_ball_world_snowday(P, a, ball_vel_pre, bw_push, bw_touch,
+                               bw_navg);
+  else if (mesh)
+    resolve_ball_world_mesh(P, a, ball_vel_pre, bw_push, bw_touch, bw_navg);
+  else
+    resolve_ball_world(P, a, ball_vel_pre, bw_push, bw_touch, bw_navg);
+  // Ball::_OnWorldCollision: the heatseeker back-wall flip; the snowday
+  // puck's ground stick
+  if (mode == MODE_HEATSEEKER) {
+    hs_wall_bounce(a, bw_touch, bw_navg, ball_cache_dv);
+  } else if (mode == MODE_SNOWDAY && bw_touch) {
+    a.bvel = a.bvel - bw_navg * P.snow_stick;
+  }
 
   V3 cc_dv[NC], cc_dw[NC], cc_push[NC], cc_turn[NC], cc_cache[NC];
   int got_demoed[NC], bumped_id[NC], l_bump[NC], l_bumped[NC], l_demo[NC],

@@ -20,9 +20,10 @@ def resolve_device(device=None) -> torch.device:
 
 def tree_map(fn, tree, *rest):
     """Map ``fn`` over the tensor leaves of dataclasses, dicts, lists and
-    tuples.  ``rest`` trees are walked by the first tree's structure: field
-    names for dataclasses, keys for dicts, positions for sequences (so a
-    JAX pytree with the same field names can ride along)."""
+    tuples; other leaves (counters, flags) are kept as they are.  ``rest``
+    trees are walked by the first tree's structure: field names for
+    dataclasses, keys for dicts, positions for sequences (so a JAX pytree
+    with the same field names can ride along)."""
     if tree is None:
         return None
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
@@ -36,5 +37,5 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
-    return fn(tree, *rest)
+    return fn(tree, *rest) if isinstance(tree, torch.Tensor) else tree
 

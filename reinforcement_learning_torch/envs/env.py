@@ -29,6 +29,7 @@ from reinforcement_learning_torch.envs.rewards import (RewardCtx,
                                                        WeightedReward,
                                                        combine_rewards)
 from reinforcement_learning_torch.ops.arena_step import arena_step
+from reinforcement_learning_torch.ops.ctick import check_supported
 from reinforcement_learning_torch.physics import step as stepmod
 from reinforcement_learning_torch.physics.state import NUM_CONTROLS
 
@@ -110,6 +111,9 @@ class RocketLeagueEnv:
         self.config = config
         self.device = resolve_device(config.device)
         self.params = config.arena
+        # soccar, heatseeker and snowday run on the kernel (hoops needs the
+        # portable physics path, not ported yet)
+        check_supported(self.params)
         self.teams_np = config.make_teams()
         self.teams = torch.as_tensor(self.teams_np, device=self.device)
         P = config.cars_per_arena

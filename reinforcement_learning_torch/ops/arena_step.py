@@ -201,7 +201,17 @@ def pack_params(params, teams: tuple) -> np.ndarray:
         f += [float(n)] + pad(xs, 6) + pad(ys, 6)
         f += pad(np.diff(xs), 5) + pad(np.diff(ys), 5)
     f += _pack_full_fidelity(k)
+    f += _pack_game_mode(k)
     return np.asarray(f, np.float32)
+
+
+def _pack_game_mode(k) -> list:
+    """The game-mode tail of ``Params``: the mode's index in
+    ``ctick.GAME_MODES`` and the snowday puck's values, folded in double
+    precision as ``ctick._resolve_ball_world_snowday`` folds them (packed
+    in every mode, so the struct keeps one size)."""
+    return ([float(ctick.GAME_MODES.index(k.game_mode))]
+            + list(ctick.puck_consts(k.mut, k.dt)))
 
 
 # facet table rows in the kernel's order (facets.cuh BZ0.. and SNX..)
@@ -347,8 +357,8 @@ def arena_step(phys: PhysicsState, controls: torch.Tensor,
     ...)``; ``controls``: ``(E, C, 8)`` float32, applied from tick
     ``action_delay``; ``respawn_idx``: ``(E, C)`` int32, one respawn-table
     row per car for this step; ``params``: ``ArenaParams``; ``teams``: team
-    id per car slot.  Raises ``NotImplementedError`` for game modes other
-    than soccar."""
+    id per car slot.  Runs soccar, heatseeker and snowday; raises
+    ``NotImplementedError`` for hoops."""
     teams = tuple(int(t) for t in teams)
     ctick.check_supported(params)
     E, Cn = phys.arena.cars.boost.shape

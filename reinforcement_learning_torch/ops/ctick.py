@@ -15,9 +15,15 @@ contact manifolds solved jointly by a bullet-order PGS.  With
 ``dynamic_wheel_rays`` the suspension rays also hit the ball and the other
 cars, and the wheel friction uses the hit body's velocity and mass.
 
+Game modes on the soccar geometry (``game_mode``): heatseeker steers the
+ball toward a goal, retargets it on touches and deep back-wall hits
+(``_hs_steer``, ``_hs_on_hit``, ``_hs_wall_bounce``); snowday's puck
+collides the analytic planes with the exact support of its cylinder, in
+either arena, and sticks to the ground (``_resolve_ball_world_snowday``).
+Hoops needs its own arena: ``make_consts`` raises for it.
+
 The only randomness (demo respawn location) comes in from the caller as
-one pre-drawn index per car per env step.  Game modes other than soccar
-are not part of this version: ``make_consts`` raises for them.
+one pre-drawn index per car per env step.
 """
 
 from __future__ import annotations
@@ -57,6 +63,10 @@ TOLERANCES = {
     "arena.cars.ball_hit_extra_vel": (0.2, 1e-4),
     "arena.ball.rot": (1e-4, 0),
     "wheels.engine_force": (1e-3, 1e-4), "wheels.brake": (1e-3, 1e-4),
+    # heatseeker (tests/test_ctick.py:334-500): the hit state exact
+    "arena.ball.hs_y_target_dir": (0.0, 0),
+    "arena.ball.hs_target_speed": (1e-4, 0),
+    "arena.ball.hs_time_since_hit": (1e-6, 0),
 }
 DEFAULT_TOLERANCE = (1e-4, 1e-4)
 
@@ -84,13 +94,19 @@ class TickConsts:
     use_mesh: bool = False          # the facet arena + 4 true planes
     dynamic_rays: bool = False      # wheel rays hit the ball and cars
     facets: object = None           # facet_arena.FacetTables when use_mesh
+    game_mode: str = "soccar"       # soccar | heatseeker | snowday
+
+
+GAME_MODES = ("soccar", "heatseeker", "snowday")
 
 
 def check_supported(params) -> None:
     """Raise for the configurations this port does not run yet."""
-    if getattr(params, "game_mode", "soccar") != "soccar":
+    mode = getattr(params, "game_mode", "soccar")
+    if mode not in GAME_MODES:
         raise NotImplementedError(
-            f"game_mode={params.game_mode!r}: only soccar is ported")
+            f"game_mode={mode!r}: the kernel runs {GAME_MODES}; hoops needs "
+            "the portable physics path, not ported yet")
 
 
 def make_consts(params, teams) -> TickConsts:
@@ -130,6 +146,7 @@ def make_consts(params, teams) -> TickConsts:
         use_mesh=bool(params.use_mesh),
         dynamic_rays=bool(params.dynamic_wheel_rays),
         facets=fa.tables() if params.use_mesh else None,
+        game_mode=str(params.game_mode),
     )
 
 
@@ -980,7 +997,8 @@ def _resolve_car_world(k: TickConsts, st, inv_iw, vel_pre, ang_vel_pre):
 
 def _resolve_ball_world(k: TickConsts, ball_pos, ball_vel, ball_ang_vel,
                         ball_vel_pre):
-    """The merged sphere-plane contact: (dvel uu, dang, push uu)."""
+    """The merged sphere-plane contact: (dvel uu, dang, push uu, touching,
+    mean contact normal)."""
     mut = k.mut
     radius = mut.ball_radius
     break_gap = C.CONTACT_BREAK_FRAC * (radius + C.SPHERE_BOUND_EXTRA)
@@ -1010,7 +1028,78 @@ def _resolve_ball_world(k: TickConsts, ball_pos, ball_vel, ball_ang_vel,
         vscale(ball_vel_pre, C.UU_TO_BT))
     push = vscale(navg, torch.clamp(max_depth, min=0.0) * C.SOLVER_ERP2)
     return (vscale(dv_bt, C.BT_TO_UU), dw,
-            vwhere(touching, push, vzero(zero)))
+            vwhere(touching, push, vzero(zero)), touching, navg)
+
+
+def puck_consts(mut, dt: float) -> tuple:
+    """The snowday puck's values, in double precision: its contact break
+    gap (uu), inverse inertia across and along its axis (a solid cylinder,
+    bt units), and the ground stick's speed change per tick (uu/s)."""
+    r_bt = C.Snowday.PUCK_RADIUS * C.UU_TO_BT
+    h_bt = C.Snowday.PUCK_HEIGHT * C.UU_TO_BT
+    i_axis = 0.5 * mut.ball_mass * r_bt ** 2
+    i_perp = mut.ball_mass * (3 * r_bt ** 2 + h_bt ** 2) / 12.0
+    return (C.CONTACT_BREAK_FRAC * float(np.hypot(C.Snowday.PUCK_RADIUS,
+                                                  C.Snowday.PUCK_HEIGHT / 2)),
+            1.0 / i_perp, 1.0 / i_axis,
+            C.Snowday.PUCK_GROUND_STICK_FORCE / mut.ball_mass * dt
+            * C.BT_TO_UU)
+
+
+def _snow_plane_row(plane, axis, ball_pos, valid, break_gap):
+    """One plane of the puck's contact: the support distance of the
+    cylinder (axis ``axis``) along the plane normal, its gap, and whether
+    the row is live (valid and within ``break_gap``)."""
+    r_p = C.Snowday.PUCK_RADIUS
+    h_half = C.Snowday.PUCK_HEIGHT / 2
+    pn = cv.vconst(plane[:3], ball_pos[0])
+    a_dot_n = vdot(axis, pn)
+    support = (r_p * torch.sqrt(torch.clamp(1.0 - a_dot_n * a_dot_n,
+                                            min=0.0))
+               + h_half * torch.abs(a_dot_n))
+    gap = _plane_dist(plane, ball_pos) - support
+    return _and_valid(valid, gap < break_gap), support, gap, pn
+
+
+def _resolve_ball_world_snowday(k: TickConsts, ball_pos, ball_vel,
+                                ball_ang_vel, ball_rot, ball_vel_pre):
+    """The snowday puck against the arena: the merged contact over all the
+    analytic planes (in either arena: the puck never meets the facet arena,
+    Ball.cpp:53-82) with the cylinder's exact support distance per plane,
+    its solid-cylinder inertia turned to the world, 10 solver passes.
+    Returns (dvel uu, dang, push uu, touching, mean contact normal)."""
+    mut = k.mut
+    axis = (ball_rot[0][2], ball_rot[1][2], ball_rot[2][2])
+    break_gap, inv_i_perp, inv_i_axis, _ = puck_consts(mut, k.dt)
+    valid = plane_validity(ball_pos)
+    zero = torch.zeros_like(ball_pos[0])
+    num = zero
+    navg = vzero(zero)
+    max_depth = zero
+    supp_sum = zero
+    for p, plane in enumerate(k.planes):
+        act, support, gap, pn = _snow_plane_row(plane, axis, ball_pos,
+                                                valid[p], break_gap)
+        actf = act.to(zero.dtype)
+        num = num + actf
+        navg = vadd(navg, vscale(pn, actf))
+        supp_sum = supp_sum + support * actf
+        max_depth = torch.maximum(max_depth, torch.where(act, -gap, 0.0))
+    touching = num > 0
+    inv_n = 1.0 / torch.clamp(num, min=1.0)
+    navg = vscale(navg, inv_n)
+    r_bt = vscale(navg, -(supp_sum * inv_n) * C.UU_TO_BT)
+    inv_iw = cv.inv_inertia_world(ball_rot, (inv_i_perp, inv_i_perp,
+                                             inv_i_axis))
+    dv_bt, dw = _contact_vs_static(
+        vscale(ball_vel, C.UU_TO_BT), ball_ang_vel, r_bt, navg, touching,
+        1.0 / mut.ball_mass, inv_iw,
+        max(mut.ball_world_restitution, C.WORLD_RESTITUTION),
+        min(mut.ball_world_friction, C.WORLD_FRICTION),
+        vscale(ball_vel_pre, C.UU_TO_BT), iterations=10)
+    push = vscale(navg, torch.clamp(max_depth, min=0.0) * C.SOLVER_ERP2)
+    return (vscale(dv_bt, C.BT_TO_UU), dw,
+            vwhere(touching, push, vzero(zero)), touching, navg)
 
 
 # ---------------------------------------------------------------------------
@@ -1239,7 +1328,7 @@ def _resolve_ball_world_mesh(k: TickConsts, ball_pos, ball_vel, ball_ang_vel,
     """Ball against the full-fidelity world: the merged contact over the 4
     true planes and the 4 retained facet contacts, 10 solver passes (the
     averaged normal couples the normal and friction rows).  Returns (dvel
-    uu, dang, push uu)."""
+    uu, dang, push uu, touching, mean contact normal)."""
     mut = k.mut
     radius = mut.ball_radius
     break_gap = C.CONTACT_BREAK_FRAC * (radius + C.SPHERE_BOUND_EXTRA)
@@ -1274,7 +1363,7 @@ def _resolve_ball_world_mesh(k: TickConsts, ball_pos, ball_vel, ball_ang_vel,
         vscale(ball_vel_pre, C.UU_TO_BT), iterations=10)
     push = vscale(navg, torch.clamp(max_depth, min=0.0) * C.SOLVER_ERP2)
     return (vscale(dv_bt, C.BT_TO_UU), dw,
-            vwhere(touching, push, vzero(zero)))
+            vwhere(touching, push, vzero(zero)), touching, navg)
 
 
 def _resolve_car_ball(k: TickConsts, st, ball_pos, ball_vel, ball_ang_vel,
@@ -1282,7 +1371,8 @@ def _resolve_car_ball(k: TickConsts, st, ball_pos, ball_vel, ball_ang_vel,
     """Closest-point car-ball rows (10 coupled normal+friction passes) and
     the psyonix extra impulse (Arena.cpp:304-331).  Ball quantities are
     (E,) and broadcast against the (C, E) car arrays.
-    Returns (car_dv, car_dw, ball_dv, ball_dw, ball_cache_dv, hit_updates)."""
+    Returns (car_dv, car_dw, ball_dv, ball_dw, ball_cache_dv, hit_updates,
+    touching (C, E))."""
     mut = k.mut
     he = k.half_extents
     box_center = vadd(st['pos'], cv.matvec(
@@ -1359,7 +1449,8 @@ def _resolve_car_ball(k: TickConsts, st, ball_pos, ball_vel, ball_ang_vel,
         ball_hit_extra_vel=vwhere(apply_extra, added_vel,
                                   vwhere(touching, vzero(rel_speed),
                                          st['ball_hit_extra_vel'])))
-    return car_dv, car_dw, ball_dv, ball_dw, ball_cache_dv, hit_updates
+    return (car_dv, car_dw, ball_dv, ball_dw, ball_cache_dv, hit_updates,
+            touching)
 
 
 def _car_ball_rows(st, touching, n, r_car, r_ball, ball_vel, ball_ang_vel,
@@ -1887,6 +1978,10 @@ def tick(k: TickConsts, st: dict, respawn_idx) -> dict:
     st['vel'] = vadd(st['vel'], vscale(total_accel, dt))
     st['ang_vel'] = vadd(st['ang_vel'], vscale(total_ang_accel, dt))
 
+    # ball pre-tick: heatseeker steering (Ball.cpp:153-200)
+    if k.game_mode == "heatseeker":
+        st = _hs_steer(k, st)
+
     # ball: sleeping + gravity + drag
     bvel, bang = st['ball_vel'], st['ball_ang_vel']
     ball_awake = (vnorm(bvel) > 0) | (vnorm(bang) > 0)
@@ -1912,7 +2007,7 @@ def tick(k: TickConsts, st: dict, respawn_idx) -> dict:
                                         st['world_contact_normal'])
 
     cb_car_dv, cb_car_dw, cb_ball_dv, cb_ball_dw, ball_cache_dv, \
-        hit_updates = _resolve_car_ball(
+        hit_updates, ball_touched = _resolve_car_ball(
             k, st, st['ball_pos'], st['ball_vel'], st['ball_ang_vel'],
             st['tick_count'], inv_iw, alive, cars_vel_pre, ball_vel_pre)
     st['vel'] = vadd(st['vel'], cb_car_dv)
@@ -1921,12 +2016,35 @@ def tick(k: TickConsts, st: dict, respawn_idx) -> dict:
     st['ball_vel'] = vadd(st['ball_vel'], cb_ball_dv)
     st['ball_ang_vel'] = vadd(st['ball_ang_vel'], cb_ball_dw)
 
-    resolve_ball = _resolve_ball_world_mesh if k.use_mesh \
-        else _resolve_ball_world
-    bw_dv, bw_dw, bw_push = resolve_ball(
-        k, st['ball_pos'], st['ball_vel'], st['ball_ang_vel'], ball_vel_pre)
+    # Ball::_OnHit: heatseeker retargeting, once per touching car
+    if k.game_mode == "heatseeker":
+        st = _hs_on_hit(k, st, [ball_touched[c] & alive[c]
+                                for c in range(Cn)])
+
+    if k.game_mode == "snowday":
+        bw_dv, bw_dw, bw_push, bw_touch, bw_navg = \
+            _resolve_ball_world_snowday(
+                k, st['ball_pos'], st['ball_vel'], st['ball_ang_vel'],
+                st['ball_rot'], ball_vel_pre)
+    else:
+        resolve_ball = _resolve_ball_world_mesh if k.use_mesh \
+            else _resolve_ball_world
+        bw_dv, bw_dw, bw_push, bw_touch, bw_navg = resolve_ball(
+            k, st['ball_pos'], st['ball_vel'], st['ball_ang_vel'],
+            ball_vel_pre)
     st['ball_vel'] = vadd(st['ball_vel'], bw_dv)
     st['ball_ang_vel'] = vadd(st['ball_ang_vel'], bw_dw)
+
+    # Ball::_OnWorldCollision: the heatseeker back-wall flip; the snowday
+    # puck's ground stick
+    if k.game_mode == "heatseeker":
+        st, hs_cache = _hs_wall_bounce(k, st, bw_touch, bw_navg)
+        ball_cache_dv = vadd(ball_cache_dv, hs_cache)
+    elif k.game_mode == "snowday":
+        stick = puck_consts(mut, dt)[3]
+        st['ball_vel'] = vwhere(
+            bw_touch, vsub(st['ball_vel'], vscale(bw_navg, stick)),
+            st['ball_vel'])
 
     latches = None
     cc_push = cc_turn = None
@@ -1999,6 +2117,108 @@ def tick(k: TickConsts, st: dict, respawn_idx) -> dict:
             st[f] = st[f] | latches[f]
     st['tick_count'] = st['tick_count'] + 1
     return st
+
+
+# ---------------------------------------------------------------------------
+# Heatseeker (Ball.cpp:153-246)
+
+def _wrap(x, minmax):
+    """Math::WrapNormalizeFloat (Math.cpp:66-73); fmod is C's fmodf."""
+    r = torch.fmod(x, minmax * 2)
+    r = torch.where(r > minmax, r - minmax * 2, r)
+    return torch.where(r < -minmax, r + minmax * 2, r)
+
+
+def _round_angle_ue3(ang):
+    """Math::RoundAngleUE3 (Math.cpp:75-88): the UE3 rotator quantum
+    4*pi/32768.  The cast truncates toward zero and ``>>`` shifts the sign
+    in, as C's int conversion and signed shift do."""
+    to_ints = float(1 << 15) / np.pi
+    back = (1.0 / to_ints) * 4.0
+    r = (ang * to_ints).to(torch.int32) >> 2
+    return (r & (0x4000 - 1)).to(torch.float32) * back
+
+
+def _hs_steer(k: TickConsts, st):
+    """Ball::_PreTickUpdate, heatseeker (Ball.cpp:153-200): turn the
+    velocity toward the target goal point, quantise the angles, blend the
+    speed toward the target speed; only while seeking."""
+    HS = C.Heatseeker
+    dt = k.dt
+    ytd, tspeed, tsince = st['ball_hs']
+    active = ytd != 0
+    vel = st['ball_vel']
+    speed = vnorm(vel)
+    d2 = torch.sqrt(vel[0] * vel[0] + vel[1] * vel[1])
+    v_yaw = torch.atan2(vel[1], vel[0])
+    v_pitch = torch.atan2(vel[2], d2)
+    gx = 0.0 - st['ball_pos'][0]      # +0 at x = 0, as the reference
+    gy = HS.TARGET_Y * ytd - st['ball_pos'][1]
+    gz = HS.TARGET_Z - st['ball_pos'][2]
+    g_yaw = torch.atan2(gy, gx)
+    g_pitch = torch.atan2(gz, torch.sqrt(gx * gx + gy * gy))
+    d_yaw = _wrap(g_yaw - v_yaw, np.pi)
+    d_pitch = _wrap(g_pitch - v_pitch, np.pi / 2)
+    f = (speed / HS.MAX_SPEED) * dt
+    new_yaw = _wrap(v_yaw + d_yaw * f * HS.HORIZONTAL_BLEND, np.pi)
+    new_pitch = torch.clamp(
+        _wrap(v_pitch + d_pitch * f * HS.VERTICAL_BLEND, np.pi / 2),
+        -HS.MAX_TURN_PITCH, HS.MAX_TURN_PITCH)
+    new_yaw = _round_angle_ue3(new_yaw)
+    new_pitch = _round_angle_ue3(new_pitch)
+    new_speed = speed + (tspeed - speed) * HS.SPEED_BLEND
+    cp, sp = torch.cos(new_pitch), torch.sin(new_pitch)
+    new_vel = (cp * torch.cos(new_yaw) * new_speed,
+               cp * torch.sin(new_yaw) * new_speed, sp * new_speed)
+    st = dict(st)
+    st['ball_vel'] = vwhere(active, new_vel, vel)
+    st['ball_hs'] = (ytd, tspeed, torch.where(active, tsince + dt, tsince))
+    return st
+
+
+def _hs_on_hit(k: TickConsts, st, touched):
+    """Ball::_OnHit, heatseeker (Ball.cpp:203-216), once per touching car
+    in index order, each call reading the previous one's writes: the
+    toucher's team sets the target goal, and the target speed rises when
+    the target flips after the minimum interval (or from idle)."""
+    HS = C.Heatseeker
+    ytd, tspeed, tsince = st['ball_hs']
+    for c in range(k.num_cars):
+        t = touched[c]
+        d = 1.0 if k.teams[c] == 0 else -1.0
+        can_increase = (tsince > HS.MIN_SPEEDUP_INTERVAL) | (ytd == 0)
+        sp = t & can_increase & (ytd != d)
+        ytd = torch.where(t, d, ytd)
+        tspeed = torch.where(
+            sp, torch.clamp(tspeed + HS.TARGET_SPEED_INCREMENT,
+                            max=HS.MAX_SPEED), tspeed)
+        tsince = torch.where(sp, 0.0, tsince)
+    st = dict(st)
+    st['ball_hs'] = (ytd, tspeed, tsince)
+    return st
+
+
+def _hs_wall_bounce(k: TickConsts, st, touching, navg):
+    """Ball::_OnWorldCollision, heatseeker (Ball.cpp:218-246): a world
+    contact deep in the target's back wall flips the target and adds a
+    goal-ward bounce.  Returns (st, velocity cache addition)."""
+    HS = C.Heatseeker
+    ytd, tspeed, tsince = st['ball_hs']
+    pos = st['ball_pos']
+    flip = (touching & (ytd != 0)
+            & (navg[1] * ytd <= -HS.WALL_BOUNCE_CHANGE_Y_NORMAL)
+            & (pos[1] * ytd >= C.ARENA_EXTENT_Y
+               - HS.WALL_BOUNCE_CHANGE_Y_THRESH))
+    new_ytd = torch.where(flip, -ytd, ytd)
+    to_goal = vnormalize((-pos[0], HS.TARGET_Y * new_ytd - pos[1],
+                          HS.TARGET_Z - pos[2]))
+    up = HS.WALL_BOUNCE_UP_FRAC
+    mag = vnorm(st['ball_vel']) * HS.WALL_BOUNCE_FORCE_SCALE
+    bounce = (to_goal[0] * (1.0 - up) * mag, to_goal[1] * (1.0 - up) * mag,
+              (to_goal[2] * (1.0 - up) + up) * mag)
+    st = dict(st)
+    st['ball_hs'] = (new_ytd, tspeed, tsince)
+    return st, vwhere(flip, bounce, vzero(mag))
 
 
 def step(k: TickConsts, st: dict, new_controls, respawn_idx,

@@ -17,10 +17,14 @@ band and goal facets, the floor grid and the ceiling grid separately), so
 a ball resting on the floor grid counts the grid's rows and not the walls'
 and goal's; the 4-slot retention on its live candidates only; the rest of
 a manifold where a slot is occupied; the facet raycast where it hits a
-facet; and the joint PGS where a row is live.  (The kernel skips the
-plane, ball and car-ball solvers without contact; it still runs the facet
-queries of every body, the joint PGS of every car, and the box manifold
-and pair solver of every car pair.)
+facet; and the joint PGS where a row is live.  In the game modes:
+heatseeker steering where the ball seeks a goal (``hs_y_target_dir`` not
+0); each snowday plane row where the plane is valid and within the
+puck's break distance, and its 10-pass contact (``_contact_vs_static``)
+where the puck touches.  (The kernel skips the plane, ball and car-ball
+solvers without contact; it still runs the facet queries of every body,
+the joint PGS of every car, and the box manifold and pair solver of every
+car pair.)
 """
 
 from __future__ import annotations
@@ -76,6 +80,9 @@ GATES = {
     (ctick, "_facet_sphere_manifold"): lambda a, out: out[0][2],
     (facet_arena, "raycasts"): lambda a, out: out[4],
     (ctick, "_pgs_rows"): lambda a, out: _any([r[3] for r in a["rows"]]),
+    # game modes
+    (ctick, "_hs_steer"): lambda a, out: a["st"]["ball_hs"][0] != 0,
+    (ctick, "_snow_plane_row"): lambda a, out: out[0],
 }
 
 

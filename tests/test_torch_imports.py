@@ -1,6 +1,6 @@
-"""The port stands alone: no module of it, and neither ``chip_smoke.py``
-nor ``kernel_variants.py``, imports JAX (or flax/optax), the JAX package
-or ``tools``."""
+"""The port stands alone: no module of it, and none of ``chip_smoke.py``,
+``kernel_variants.py`` and ``bench_torch.py``, imports JAX (or
+flax/optax), the JAX package or ``tools``."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "reinforcement_learning_tpu",
              "tools")
 FILES = sorted((ROOT / "reinforcement_learning_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "kernel_variants.py"]
+    ROOT / "chip_smoke.py", ROOT / "kernel_variants.py",
+    ROOT / "bench_torch.py"]
 
 
 def _imported_roots(path: Path) -> set:
@@ -30,7 +31,8 @@ def test_the_port_has_its_modules():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     for mod in ("constants", "maths", "physics/state", "physics/step",
                 "ops/pack", "ops/ctick", "ops/arena_step", "envs/env",
-                "envs/obs", "models/mlp", "learn/ppo", "learn/trainer"):
+                "envs/obs", "models/mlp", "learn/ppo", "learn/trainer",
+                "learn/gae", "learn/welford"):
         assert f"reinforcement_learning_torch/{mod}.py" in names, mod
     assert (ROOT / "reinforcement_learning_torch/csrc/arena_step.cu").exists()
 

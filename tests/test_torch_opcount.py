@@ -19,6 +19,7 @@ FULL_FIDELITY_GATES = ("_facet_box_manifold", "_facet_sphere_manifold",
                        "keep_diverse4", "raycasts", "_pgs_rows")
 CAR_FACET_GATES = ("_facet_box_manifold", "box_contacts", "raycasts",
                    "_pgs_rows")
+GAME_MODE_GATES = ("_hs_steer", "_snow_plane_row")
 
 torch.set_num_threads(1)
 
@@ -68,8 +69,10 @@ def test_step_work_runs_the_plain_step_and_restores_it():
     assert 0 < work.ops_needed < work.ops_branch_free
     for name, (needed, full) in work.by_gate.items():
         assert 0 <= needed <= full, name
-        # the plane arena runs every gated solver but the full-fidelity ones
-        assert (full > 0) == (name not in FULL_FIDELITY_GATES), name
+        # the plane arena in soccar runs every gated solver but the
+        # full-fidelity and game-mode ones
+        assert (full > 0) == (name not in FULL_FIDELITY_GATES
+                              + GAME_MODE_GATES), name
 
 
 def test_gated_work_follows_the_contacts():
@@ -133,3 +136,32 @@ def test_full_fidelity_gates_follow_the_facets():
     # 600 uu up, no car reaches the floor or ceiling grid
     assert near.by_gate["sheet_box_contacts"][0] == 0
     assert near.ops_needed > apart.ops_needed
+
+
+def test_game_mode_gates_follow_their_events():
+    """Heatseeker steering counts only where the ball seeks a goal; a
+    snowday plane row only where it is live, the puck's 10-pass contact
+    only where it touches (plane arena, 2 ticks)."""
+    consts = {}
+    works = {}
+    ctl = torch.zeros(E, CARS, 8)
+    ridx = torch.zeros(E, CARS, dtype=torch.int32)
+    for mode in ("heatseeker", "snowday"):
+        params = tstep.ArenaParams(num_cars=CARS, use_mesh=False,
+                                   dynamic_wheel_rays=False, game_mode=mode)
+        consts[mode] = arena_step_mod._consts(params, TEAMS)
+        phys = _state(overlap=False)
+        ball = phys.arena.ball
+        ball.pos = torch.tensor([[0., 1000., 800.], [0., 1000., 31.5]])
+        ball.vel = torch.tensor([[300., 900., 0.], [300., 900., -100.]])
+        ball.hs_y_target_dir = torch.tensor([1.0, 0.0])
+        works[mode] = opcount.step_work(phys, ctl, ridx, consts[mode],
+                                        tick_skip=TICKS, action_delay=0)
+    needed, full = works["heatseeker"].by_gate["_hs_steer"]
+    assert 0 < needed and abs(needed - full / 2) < 1e-6 * full
+    # arena 0's puck is in the air, arena 1's on the floor: one live row
+    # (the floor) of 15 in one arena of 2
+    needed, full = works["snowday"].by_gate["_snow_plane_row"]
+    assert abs(needed - full / 30) < 1e-3 * full
+    needed, full = works["snowday"].by_gate["_contact_vs_static"]
+    assert 0 < needed < full

@@ -585,11 +585,11 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
                                                         dtype=torch.int32))
 
 
-@pytest.mark.parametrize("kw", [dict(game_mode="heatseeker", use_mesh=True),
-                                dict(game_mode="snowday",
+@pytest.mark.parametrize("kw", [dict(game_mode="hoops", use_mesh=True),
+                                dict(game_mode="hoops",
                                      dynamic_wheel_rays=True),
-                                dict(game_mode="heatseeker"),
-                                dict(game_mode="snowday")])
+                                dict(game_mode="hoops"),
+                                dict(game_mode="rumble")])
 def test_unported_configurations_raise(kw):
     params = tstep.ArenaParams(**{**dict(num_cars=CARS, use_mesh=False,
                                          dynamic_wheel_rays=False), **kw})
@@ -620,18 +620,25 @@ def test_kernel_params_layout():
                  true_plane=15, corners=8 * 3, pad_locs=34 * 3, pad_big=34,
                  respawn=4 * 3, curves=12 * (1 + 6 + 6 + 5 + 5),
                  flags=2, full_folded=3, core=3 + 8 * 3,
-                 facet_bands=11 * 19, facet_sides=3 * 9)
+                 facet_bands=11 * 19, facet_sides=3 * 9, game_mode=1,
+                 snowday=4)
     assert prm.size == sum(sizes.values())
     # under the 4 KB of kernel arguments, with the buffer pointers
     assert prm.nbytes + 128 <= 4096
     assert list(prm[:8]) == [0, 0, 1, 1, 0, 0, 0, 0]
     assert prm[8] == np.float32(1 / 120)
-    tail = sum(sizes.values()) - sum(list(sizes.values())[-5:])
+    tail = sum(sizes.values()) - sum(list(sizes.values())[-7:])
     assert list(prm[tail:tail + 2]) == [0.0, 0.0]      # plane arena
     full = arena_step_mod.pack_params(tstep.ArenaParams(num_cars=CARS),
                                       TEAMS)
     assert list(full[tail:tail + 2]) == [1.0, 1.0]
     np.testing.assert_array_equal(full[tail + 2:], prm[tail + 2:])
+    # the game mode, in ctick.GAME_MODES order
+    assert prm[-5] == 0.0
+    for i, mode in enumerate(("heatseeker", "snowday"), 1):
+        gm = arena_step_mod.pack_params(tstep.ArenaParams(
+            num_cars=CARS, game_mode=mode), TEAMS)
+        assert gm[-5] == i
 
 
 if __name__ == "__main__":
