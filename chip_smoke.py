@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which must pass (nothing is caught):
 
 1. build the arena-step kernel (csrc/arena_step.cu with cvec.cuh and
-   facets.cuh) with nvcc for sm_90a;
+   facets.cuh) with nvcc for sm_90a, and print its launch shape (arenas
+   per block, lanes per arena, blocks) and the 4-car kernel's registers,
+   stack, spills and shared memory;
 2. plane arena (``use_mesh=False``, ``dynamic_wheel_rays=False``): hold the
    kernel against its plain PyTorch version (ops/ctick.py) on the card at
    E=1024 arenas x 4 cars from five states: random env steps after
@@ -37,8 +39,9 @@ Phases, each of which must pass (nothing is caught):
    env steps, on the plane arena and at full fidelity; on each path's end
    state the kernel is held against the plain version, the plain run
    counting the work those inputs need for the kernel's bound
-   (ops/opcount.py), and the kernel, the plain version and the collection
-   are timed;
+   (ops/opcount.py), the share of facet items, wheel-ray bands and car
+   pairs the kernel's culls skip there is printed, and the kernel, the
+   plain version and the collection are timed;
 6. the main path: ``Trainer.train_iteration`` at bench.py's shape
    (bench_torch.py: 1024 x 2v2 soccar at full fidelity, 24 env steps,
    batch 50k, 2 epochs): one warm-up iteration, 3 timed ones (launches
@@ -62,6 +65,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -591,6 +595,84 @@ class States:
         return phys
 
 
+def ptxas_resources(log, num_cars):
+    """The ptxas lines of the ``num_cars``-car kernel in nvcc's -v output:
+    registers, stack frame, spill stores and loads."""
+    lines = log.splitlines()
+    at = [i for i, ln in enumerate(lines)
+          if "entry function" in ln and f"ILi{num_cars}E" in ln]
+    if not at:
+        fail(f"no ptxas lines for the {num_cars}-car kernel")
+    info = " ".join(lines[at[0] + 1:at[0] + 4])
+    num = {k: re.search(rf"(\d+) {k}", info) for k in (
+        "registers", "bytes stack frame", "bytes spill stores",
+        "bytes spill loads")}
+    if not all(num.values()):
+        fail(f"unparsed ptxas lines: {info}")
+    return ", ".join(f"{m.group(1)} {k}" for k, m in num.items())
+
+
+def kernel_skips(phys, consts):
+    """The share of the work the kernel's culls skip on ``phys`` (its
+    first tick, the torch forms of the culls in physics/facet_arena.py):
+    (body, band) facet items of the cars and the ball, (wheel ray, band)
+    tests, and the share of car pairs whose box-box test finds a contact
+    and so reach the pair solver."""
+    import numpy as np
+    import torch
+    from reinforcement_learning_torch import constants as C
+    from reinforcement_learning_torch.physics import box_box
+    from reinforcement_learning_torch.physics import facet_arena as fa
+    cars, ball = phys.arena.cars, phys.arena.ball
+    # the break gaps and ray lengths as ops/arena_step.py packs them
+    he = consts.half_extents
+    brk = C.CONTACT_BREAK_FRAC * (float(np.linalg.norm(he)) + float(
+        np.linalg.norm(consts.hitbox_offset)))
+    radius = consts.mut.ball_radius
+    ball_brk = C.CONTACT_BREAK_FRAC * (radius + C.SPHERE_BOUND_EXTRA)
+    ray_len = [r + C.BTVehicle.MAX_SUSPENSION_TRAVEL + rad
+               - C.BTVehicle.SUSPENSION_SUBTRACTION * C.BT_TO_UU
+               for r, rad in zip(consts.sus_rest, consts.wheel_radii)]
+    rot = cars.rot                                   # (E, C, 3, 3)
+    R = tuple(tuple(rot[..., i, j] for j in range(3)) for i in range(3))
+    off = torch.tensor(consts.hitbox_offset, device=rot.device)
+    bc = cars.pos + torch.einsum("ecij,j->eci", rot, off)
+    hc = tuple(h - C.MESH_COLLISION_MARGIN for h in he)
+    box = fa.box_band_culled(bc[..., 0], bc[..., 1], bc[..., 2], R, hc,
+                             fa.box_dist_margin(he), brk)
+    items = [box.reshape(-1)]
+    if consts.game_mode != "snowday":
+        items.append(fa.sphere_band_culled(
+            ball.pos[:, 0], ball.pos[:, 1], ball.pos[:, 2], radius,
+            ball_brk).reshape(-1))
+    items = torch.cat(items)
+    rays = []
+    for w in range(4):
+        hard = cars.pos + torch.einsum(
+            "ecij,j->eci", rot,
+            torch.tensor(consts.wheel_offsets[w], device=rot.device))
+        rays.append(fa.ray_band_culled(hard[..., 0], hard[..., 1],
+                                       hard[..., 2], ray_len[w]))
+    rays = torch.stack(rays)
+    alive = ~cars.is_demoed
+    bc_bt = bc * C.UU_TO_BT
+    pairs = []
+    for i in range(CARS):
+        for j in range(i + 1, CARS):
+            mf = box_box.box_box_clamped_components(
+                tuple(bc_bt[:, i, k] for k in range(3)),
+                tuple(tuple(rot[:, i, a, b] for b in range(3))
+                      for a in range(3)), consts.he_eff_bt,
+                tuple(bc_bt[:, j, k] for k in range(3)),
+                tuple(tuple(rot[:, j, a, b] for b in range(3))
+                      for a in range(3)), consts.he_eff_bt)
+            pairs.append(mf["overlap"] & alive[:, i] & alive[:, j])
+    pairs = torch.stack(pairs)
+    return {"band_items_skipped": float(items.float().mean()),
+            "ray_band_tests_skipped": float(rays.float().mean()),
+            "car_pairs_solved": float(pairs.float().mean())}
+
+
 def torch_stack3(x, y, z):
     import torch
     return torch.stack([x, y, z], -1)
@@ -768,6 +850,9 @@ def end_state(label, trainer, tstate, actions, params, card, gen):
     got = A.arena_step(phys, ctl, r, params, teams)
     torch.cuda.synchronize()
     err = compare(f"{label}_end_state", got, work.out, 1)
+    if params.use_mesh:
+        print(f"[{label}] the kernel's culls on this state's first tick: "
+              + json.dumps(kernel_skips(phys, consts)))
     print(f"[{label}] fp32 ops per env step, needed / branch-free: "
           + json.dumps({k: [float(f"{n:.4g}"), float(f"{b:.4g}")]
                         for k, (n, b) in work.by_gate.items()}))
@@ -972,7 +1057,14 @@ def main():
         if any(w in line for w in ("entry function", "registers",
                                    "spill")):
             print(f"[build] {line.strip()}")
-    A._library()
+    shape = A.launch_shape(A._library(), E, CARS)
+    print(f"[build] launch at E={E}, C={CARS}: "
+          f"{shape['arenas_per_block']} arenas per block x "
+          f"{shape['lanes_per_arena']} lanes per arena = "
+          f"{shape['threads_per_block']} threads, {shape['blocks']} blocks; "
+          f"4-car kernel: {ptxas_resources(log, 4)}, "
+          f"{shape['shared_bytes_per_block']} bytes of shared memory per "
+          "block (dynamic)")
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     S = States(dev, gen)

@@ -2,6 +2,7 @@
 """Time builds of the arena-step kernel against each other on one card.
 
     python3 kernel_variants.py [LABEL=CSRC_DIR[+MACRO...] ...]
+    python3 kernel_variants.py --stages
 
 Each variant is the kernel source in CSRC_DIR (a folder holding
 arena_step.cu and the headers it includes), compiled by nvcc for sm_90a
@@ -22,6 +23,13 @@ launches per sample, the variants taken in the order A B .. B A, twice.
 Prints each variant's ptxas line for the 4-car kernel, its largest
 deviation from the first variant's output, its times, and the card's name
 and power limit; the last line is one JSON object of the medians.
+
+With ``--stages`` it builds this checkout's kernel with its stage clocks
+(``-DARENA_STEP_STAGE_CLOCKS``: each arena's lane 0 adds the cycles of
+every stage of a tick, meetings included) and prints the cycles per
+arena-tick of each stage over 10 env steps, on the plane and
+full-fidelity inputs above and on a played full-fidelity input (48 env
+steps of random controls after kickoff).
 """
 
 from __future__ import annotations
@@ -72,14 +80,14 @@ def build_all(variants, build_dir):
         four = [i for i, ln in enumerate(lines)
                 if "entry function" in ln and "ILi4E" in ln]
         info = [ln.split(":", 1)[-1].strip()
-                for ln in lines[four[0] + 1:four[0] + 3]] if four else []
+                for ln in lines[four[0] + 2:four[0] + 4]] if four else []
         built[label] = (so, info)
     return built
 
 
-def inputs(params, lib, teams, dev, gen):
-    """(state, controls, respawn draws) after kickoff and 6 env steps of
-    random controls, stepped by ``lib``."""
+def inputs(params, lib, teams, dev, gen, steps=6):
+    """(state, controls, respawn draws) after kickoff and ``steps`` env
+    steps of random controls, stepped by ``lib``."""
     import torch
     from reinforcement_learning_torch.envs.env import (EnvConfig,
                                                        RocketLeagueEnv)
@@ -96,9 +104,53 @@ def inputs(params, lib, teams, dev, gen):
         return (torch.cat([analog, buttons], -1),
                 torch.randint(0, 4, (E, CARS), generator=gen, device=dev,
                               dtype=torch.int32))
-    for _ in range(6):
+    for _ in range(steps):
         phys = A._launch(lib, phys, *draw(), params, teams, 8, 7, stream)
     return (phys, *draw())
+
+
+STAGES = ("controls, demo respawn", "wheel rays and friction",
+          "facet items", "retention", "per car: state machines to world "
+          "step; pad timers", "ball pre-tick; each car vs the world",
+          "car-ball", "ball vs the world; car pairs", "integration",
+          "pad pickup", "boost gain, goal")
+
+
+def stage_clocks(build_dir, dev, teams, gen):
+    """Cycles per arena-tick of each stage of the stage-clock build."""
+    import ctypes
+    import torch
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.physics.step import ArenaParams
+    here = os.path.join(ROOT, "reinforcement_learning_torch", "csrc")
+    so, info = build_all([("stages", here, ("ARENA_STEP_STAGE_CLOCKS",))],
+                         build_dir)["stages"]
+    print(f"[stages] 4-car kernel: {'; '.join(info)}")
+    lib = A._library(so)
+    lib.arena_step_stage_cycles.argtypes = [ctypes.c_void_p]
+    cycles = (ctypes.c_ulonglong * len(STAGES))()
+    full = ArenaParams(num_cars=CARS)
+    stream = torch.cuda.current_stream().cuda_stream
+    for cfg, params, steps in (
+            ("plane", ArenaParams(num_cars=CARS, use_mesh=False,
+                                  dynamic_wheel_rays=False), 6),
+            ("full", full, 6), ("full_played", full, 48)):
+        phys, ctl, r = inputs(params, lib, teams, dev, gen, steps)
+        A._launch(lib, phys, ctl, r, params, teams, 8, 7, stream)
+        torch.cuda.synchronize()
+        if lib.arena_step_stage_cycles(cycles):
+            raise RuntimeError("reading the stage clocks failed")
+        for _ in range(10):
+            A._launch(lib, phys, ctl, r, params, teams, 8, 7, stream)
+        torch.cuda.synchronize()
+        if lib.arena_step_stage_cycles(cycles):
+            raise RuntimeError("reading the stage clocks failed")
+        per = [c / (10 * E * 8) for c in cycles]
+        print(f"[stages] {cfg} ({steps} env steps after kickoff), cycles "
+              f"per arena-tick, total {sum(per):.0f}:")
+        for name, c in zip(STAGES, per):
+            print(f"[stages]   {name:48s} {c:9.0f} "
+                  f"{100 * c / sum(per):5.1f}%")
 
 
 def main(argv):
@@ -114,10 +166,15 @@ def main(argv):
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(smi)
-    variants = parse(argv)
     dev = torch.device("cuda")
     teams = (0, 0, 1, 1)
     os.makedirs(A.BUILD_DIR, exist_ok=True)
+    if argv == ["--stages"]:
+        with tempfile.TemporaryDirectory(dir=A.BUILD_DIR) as build_dir:
+            stage_clocks(build_dir, dev, teams,
+                         torch.Generator(device=dev).manual_seed(SEED))
+        return 0
+    variants = parse(argv)
     with tempfile.TemporaryDirectory(dir=A.BUILD_DIR) as build_dir:
         t0 = time.perf_counter()
         built = build_all(variants, build_dir)

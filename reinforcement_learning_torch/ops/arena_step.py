@@ -132,6 +132,23 @@ def _library(path: str | None = None):
     return lib
 
 
+def launch_shape(lib, num_envs: int, num_cars: int) -> dict:
+    """The kernel's launch for ``num_envs`` arenas: lanes per arena (a warp
+    or a half-warp), arenas per block, threads per block, blocks, and the
+    dynamic shared memory of a block."""
+    for name in ("arena_step_lanes", "arena_step_arenas_per_block"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    lib.arena_step_shared_bytes.argtypes = [ctypes.c_int]
+    lib.arena_step_shared_bytes.restype = ctypes.c_int
+    lanes = lib.arena_step_lanes()
+    apb = lib.arena_step_arenas_per_block()
+    return dict(lanes_per_arena=lanes, arenas_per_block=apb,
+                threads_per_block=lanes * apb,
+                blocks=-(-num_envs // apb),
+                shared_bytes_per_block=lib.arena_step_shared_bytes(num_cars))
+
+
 # ---------------------------------------------------------------------------
 # Per-arena constants
 

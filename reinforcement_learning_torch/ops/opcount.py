@@ -22,9 +22,10 @@ heatseeker steering where the ball seeks a goal (``hs_y_target_dir`` not
 0); each snowday plane row where the plane is valid and within the
 puck's break distance, and its 10-pass contact (``_contact_vs_static``)
 where the puck touches.  (The kernel skips the plane, ball and car-ball
-solvers without contact; it still runs the facet queries of every body,
-the joint PGS of every car, and the box manifold and pair solver of every
-car pair.)
+solvers without contact, the facet items and wheel-ray bands its culls
+rule out, the inactive PGS rows, and the box manifold and pair solver of
+car pairs apart; it still evaluates each cull and each surviving facet
+item's rows.)
 """
 
 from __future__ import annotations

@@ -820,63 +820,44 @@ def sheet_clip_ok(tab: FacetTables, cx, cy, inset: float, eps: float = 1.0):
 # ---------------------------------------------------------------------------
 # Rays
 
-def raycasts(ox, oy, oz, dx, dy, dz, max_len, tab: FacetTables = None,
-             bounds_eps: float = 0.5):
-    """Ray (origin o, direction d, length max_len) vs every facet: (dist,
-    nx, ny, nz, hit) of the nearest hit; the normal faces back along the
-    ray."""
-    t = tab or tables()
-    sx, sy = _fold_sign(ox), _fold_sign(oy)
-    ax, ay = ox * sx, oy * sy
-    adx, ady = dx * sx, dy * sy
-    inf = float("inf")
-    best = torch.full_like(ox, inf)
-    bnx = bny = bnz = torch.zeros_like(ox)
+def _ray_band_hits(t, side, ax, ay, oz, adx, ady, dz, sx, sy, max_len,
+                   bounds_eps):
+    """One side's bands, (N_PROFILE_BANDS,) + S: the hit distance (inf
+    where the band is not hit within max_len) and its normal, facing back
+    along the ray."""
+    b = _bands(t, side, ax)
+    z0, w0, tw, tz, L, nw, nzb = (b[k] for k in (
+        "z0", "w0", "tw", "tz", "L", "nw", "nz"))
+    w_o, t_o = _side_coords(t, side, ax, ay)
+    w_d = t.side_nx[side] * adx + t.side_ny[side] * ady
+    t_d = t.side_ux[side] * adx + t.side_uy[side] * ady
+    denom = w_d * nw + dz * nzb
+    s_o = (w_o - w0) * nw + (oz - z0) * nzb
+    safe = torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
+    t_hit = -s_o / safe
+    w_h = w_o + w_d * t_hit
+    t_h = t_o + t_d * t_hit
+    z_h = oz + dz * t_hit
+    ell = (w_h - w0) * tw + (z_h - z0) * tz
+    t_lo = t.lo0[side] - t.loS[side] * w_h
+    t_hi = t.hi0[side] - t.hiS[side] * w_h
+    cut = b["cut_t0"] - b["cut_ts"] * w_h
+    ok = ((torch.abs(denom) > 1e-9)
+          & (ell >= -bounds_eps) & (ell <= L + bounds_eps)
+          & (t_h >= t_lo - bounds_eps) & (t_h <= t_hi + bounds_eps)
+          & ~(b["has_cut"] & (torch.abs(t_h) < cut - bounds_eps)))
+    flip = torch.where(denom > 0, -1.0, 1.0)
+    nrm = _unfold_normal(t, side, nw * flip, 0.0, nzb * flip, sx, sy)
+    t_hit = torch.where(ok & (t_hit >= 0) & (t_hit <= max_len), t_hit,
+                        float("inf"))
+    return t_hit, nrm
 
-    def consider(t_hit, nx, ny, nz):
-        nonlocal best, bnx, bny, bnz
-        closer = t_hit < best
-        bnx = torch.where(closer, nx, bnx)
-        bny = torch.where(closer, ny, bny)
-        bnz = torch.where(closer, nz, bnz)
-        best = torch.minimum(best, t_hit)
 
-    def in_range(t_hit, ok):
-        return torch.where(ok & (t_hit >= 0) & (t_hit <= max_len), t_hit,
-                           inf)
-
-    for side in range(N_SIDES):
-        b = _bands(t, side, ox)
-        z0, w0, tw, tz, L, nw, nzb = (b[k] for k in (
-            "z0", "w0", "tw", "tz", "L", "nw", "nz"))
-        w_o, t_o = _side_coords(t, side, ax, ay)
-        w_d = t.side_nx[side] * adx + t.side_ny[side] * ady
-        t_d = t.side_ux[side] * adx + t.side_uy[side] * ady
-        denom = w_d * nw + dz * nzb
-        s_o = (w_o - w0) * nw + (oz - z0) * nzb
-        safe = torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
-        t_hit = -s_o / safe
-        w_h = w_o + w_d * t_hit
-        t_h = t_o + t_d * t_hit
-        z_h = oz + dz * t_hit
-        ell = (w_h - w0) * tw + (z_h - z0) * tz
-        t_lo = t.lo0[side] - t.loS[side] * w_h
-        t_hi = t.hi0[side] - t.hiS[side] * w_h
-        cut = b["cut_t0"] - b["cut_ts"] * w_h
-        ok = ((torch.abs(denom) > 1e-9)
-              & (ell >= -bounds_eps) & (ell <= L + bounds_eps)
-              & (t_h >= t_lo - bounds_eps) & (t_h <= t_hi + bounds_eps)
-              & ~(b["has_cut"] & (torch.abs(t_h) < cut - bounds_eps)))
-        flip = torch.where(denom > 0, -1.0, 1.0)
-        nrm = _unfold_normal(t, side, nw * flip, 0.0, nzb * flip, sx, sy)
-        t_hit = in_range(t_hit, ok)
-        # nearest band first (lowest band on ties)
-        k = torch.argmin(t_hit, dim=0, keepdim=True)
-        consider(t_hit.gather(0, k)[0],
-                 *(torch.broadcast_to(c, t_hit.shape).gather(0, k)[0]
-                   for c in nrm))
-
+def _ray_rect_hits(ax, ay, oz, adx, ady, dz, sx, sy, max_len, bounds_eps):
+    """Per goal rectangle: the hit distance (inf where none within max_len)
+    and its normal."""
     coords_o, coords_d = (ax, ay, oz), (adx, ady, dz)
+    out = []
     for axis, value, _, (ua, ulo, uhi), (va, vlo, vhi), _ in goal_rects():
         denom = coords_d[axis]
         safe = torch.where(torch.abs(denom) < 1e-9, 1e-9, denom)
@@ -889,7 +870,202 @@ def raycasts(ox, oy, oz, dx, dy, dz, max_len, tab: FacetTables = None,
         flip = torch.where(denom > 0, -1.0, 1.0)
         zeros = torch.zeros_like(t_hit)
         comp = {axis: flip, ua: zeros, va: zeros}
-        consider(in_range(t_hit, ok), comp[0] * sx, comp[1] * sy, comp[2])
+        out.append((torch.where(ok & (t_hit >= 0) & (t_hit <= max_len),
+                                t_hit, float("inf")),
+                    (comp[0] * sx, comp[1] * sy, comp[2])))
+    return out
 
+
+def raycasts(ox, oy, oz, dx, dy, dz, max_len, tab: FacetTables = None,
+             bounds_eps: float = 0.5):
+    """Ray (origin o, direction d, length max_len) vs every facet: (dist,
+    nx, ny, nz, hit) of the nearest hit; the normal faces back along the
+    ray."""
+    t = tab or tables()
+    sx, sy = _fold_sign(ox), _fold_sign(oy)
+    ax, ay = ox * sx, oy * sy
+    adx, ady = dx * sx, dy * sy
+    best = torch.full_like(ox, float("inf"))
+    bnx = bny = bnz = torch.zeros_like(ox)
+
+    def consider(t_hit, nx, ny, nz):
+        nonlocal best, bnx, bny, bnz
+        closer = t_hit < best
+        bnx = torch.where(closer, nx, bnx)
+        bny = torch.where(closer, ny, bny)
+        bnz = torch.where(closer, nz, bnz)
+        best = torch.minimum(best, t_hit)
+
+    for side in range(N_SIDES):
+        t_hit, nrm = _ray_band_hits(t, side, ax, ay, oz, adx, ady, dz, sx,
+                                    sy, max_len, bounds_eps)
+        # nearest band first (lowest band on ties)
+        k = torch.argmin(t_hit, dim=0, keepdim=True)
+        consider(t_hit.gather(0, k)[0],
+                 *(torch.broadcast_to(c, t_hit.shape).gather(0, k)[0]
+                   for c in nrm))
+    for t_hit, nrm in _ray_rect_hits(ax, ay, oz, adx, ady, dz, sx, sy,
+                                      max_len, bounds_eps):
+        consider(t_hit, *nrm)
     hit = torch.isfinite(best)
     return torch.where(hit, best, max_len), bnx, bny, bnz, hit
+
+
+def ray_facet_hits(ox, oy, oz, dx, dy, dz, max_len, tab: FacetTables = None,
+                   bounds_eps: float = 0.5):
+    """Ray vs every facet item: the hit distance of each (side, band),
+    (N_SIDES * N_PROFILE_BANDS,) + S side-major, and of each goal
+    rectangle, (N_GOAL_FACETS,) + S; inf where the item is not hit within
+    max_len."""
+    t = tab or tables()
+    sx, sy = _fold_sign(ox), _fold_sign(oy)
+    ax, ay = ox * sx, oy * sy
+    adx, ady = dx * sx, dy * sy
+    bands = [_ray_band_hits(t, side, ax, ay, oz, adx, ady, dz, sx, sy,
+                            max_len, bounds_eps)[0]
+             for side in range(N_SIDES)]
+    rects = [r[0] for r in _ray_rect_hits(ax, ay, oz, adx, ady, dz, sx, sy,
+                                          max_len, bounds_eps)]
+    return torch.cat(bands), torch.stack(rects)
+
+
+# ---------------------------------------------------------------------------
+# Culls: the arena-step kernel's tests for skipping a facet item (a side's
+# band, a goal rectangle, a sheet) for a body or a ray, as in csrc/
+# facets.cuh.  Each returns True where none of the item's rows can be live,
+# or the ray cannot hit it: a lower bound of every row distance the item
+# can yield reaches the break gap.  CULL_SLACK covers the bound's rounding
+# against the rows' own arithmetic.  The plain queries do not use them; the
+# tests hold them against the live rows and hits, and chip_smoke.py reports
+# the share of items they skip.
+
+CULL_SLACK = 1.0
+
+
+def _band_seg_dist(b, w, z):
+    """Distance in a side's (w, z) plane to each band's profile segment."""
+    ell = _clip((w - b["w0"]) * b["tw"] + (z - b["z0"]) * b["tz"], 0.0,
+                b["L"])
+    dw = w - (b["w0"] + b["tw"] * ell)
+    dz = z - (b["z0"] + b["tz"] * ell)
+    return torch.sqrt(dw * dw + dz * dz)
+
+
+def sphere_band_culled(px, py, pz, radius, break_gap,
+                       tab: FacetTables = None):
+    """(N_SIDES * N_PROFILE_BANDS,) + S, side-major: every sphere row of the
+    band measures a distance to a point of the band, so gap >= the
+    centre's distance to the band's profile segment - radius."""
+    t = tab or tables()
+    ax, ay = px * _fold_sign(px), py * _fold_sign(py)
+    out = []
+    for side in range(N_SIDES):
+        w_q, _ = _side_coords(t, side, ax, ay)
+        out.append(_band_seg_dist(_bands(t, side, px), w_q, pz) - radius
+                   >= break_gap + CULL_SLACK)
+    return torch.cat(out)
+
+
+def box_band_culled(px, py, pz, rot, hc, dist_m, brk,
+                    tab: FacetTables = None):
+    """(N_SIDES * N_PROFILE_BANDS,) + S for the box centred at px/py/pz
+    (rotation ``rot`` as nested row tuples, core half extents ``hc``):
+    dead where the core corners' band-plane heights (the centre's |s_d|
+    minus at most the core support radius along the band normal) all
+    reach brk + dist_m, or where the centre is farther from the band's
+    profile segment than a live row's corner can be (1 uu along it, the
+    larger of the core radius and brk + dist_m across it) plus the core
+    radius."""
+    t = tab or tables()
+    sx, sy = _fold_sign(px), _fold_sign(py)
+    ax, ay = px * sx, py * sy
+    rc = float(np.sqrt(sum(float(h) * float(h) for h in hc)))
+    reach = brk + dist_m
+    out = []
+    for side in range(N_SIDES):
+        b = _bands(t, side, px)
+        w_q, _ = _side_coords(t, side, ax, ay)
+        s_d = (w_q - b["w0"]) * b["nw"] + (pz - b["z0"]) * b["nz"]
+        mx = t.side_nx[side] * b["nw"] * sx
+        my = t.side_ny[side] * b["nw"] * sy
+        mz = b["nz"]
+        r_sup = 0.0
+        for j in range(3):
+            r_sup = r_sup + hc[j] * torch.abs(
+                mx * rot[0][j] + my * rot[1][j] + mz * rot[2][j])
+        out.append((torch.abs(s_d) - r_sup >= reach + CULL_SLACK)
+                   | (_band_seg_dist(b, w_q, pz)
+                      >= rc + 1.0 + max(rc, reach) + CULL_SLACK))
+    return torch.cat(out)
+
+
+def ray_band_culled(ox, oy, oz, max_len, tab: FacetTables = None):
+    """(N_SIDES * N_PROFILE_BANDS,) + S: a hit lies within 0.5 uu of the
+    band's profile segment and within max_len of the origin."""
+    t = tab or tables()
+    ax, ay = ox * _fold_sign(ox), oy * _fold_sign(oy)
+    out = []
+    for side in range(N_SIDES):
+        w_o, _ = _side_coords(t, side, ax, ay)
+        out.append(_band_seg_dist(_bands(t, side, ox), w_o, oz)
+                   > max_len + 0.5 + CULL_SLACK)
+    return torch.cat(out)
+
+
+def _rect_dist(ax, ay, pz, widen):
+    """Per goal rectangle: the distance from the folded point to the
+    rectangle widened by ``widen``, its plane offset and in-plane
+    coordinates."""
+    coords = (ax, ay, pz)
+    out = []
+    for axis, value, _, (ua, ulo, uhi), (va, vlo, vhi), _ in goal_rects():
+        w_q = coords[axis] - value
+        u_q, v_q = coords[ua], coords[va]
+        du = u_q - torch.clamp(u_q, ulo - widen, uhi + widen)
+        dv = v_q - torch.clamp(v_q, vlo - widen, vhi + widen)
+        out.append((torch.sqrt(w_q * w_q + du * du + dv * dv), w_q, u_q,
+                    v_q, (ulo, uhi, vlo, vhi)))
+    return out
+
+
+def rect_culled(kind, px, py, pz, reach, size=0.0, bounds_eps=None):
+    """(N_GOAL_FACETS,) + S: the goal rectangles an item of ``kind`` skips.
+    ``sphere``: reach = break gap, size = radius (every row's gap is at
+    least the distance to the rectangle - radius); ``ray``: reach =
+    max_len (a hit lies on the rectangle widened by 0.5 uu); ``box``:
+    reach = brk, size = the box's bounding radius |he| (the support point
+    lies within it of the centre, and must lie on the rectangle widened by
+    1 uu)."""
+    ax, ay = px * _fold_sign(px), py * _fold_sign(py)
+    out = []
+    if kind == "sphere":
+        for dist, *_ in _rect_dist(ax, ay, pz, 0.0):
+            out.append(dist - size >= reach + CULL_SLACK)
+    elif kind == "ray":
+        for dist, *_ in _rect_dist(ax, ay, pz, 0.5):
+            out.append(dist > reach + CULL_SLACK)
+    elif kind == "box":
+        far = size + CULL_SLACK
+        for _, w_q, u_q, v_q, (ulo, uhi, vlo, vhi) in _rect_dist(
+                ax, ay, pz, 0.0):
+            out.append((torch.abs(w_q) - size >= reach + CULL_SLACK)
+                       | (u_q < ulo - 1.0 - far) | (u_q > uhi + 1.0 + far)
+                       | (v_q < vlo - 1.0 - far) | (v_q > vhi + 1.0 + far))
+    else:
+        raise ValueError(kind)
+    return torch.stack(out)
+
+
+def sheet_culled(kind, pz, up_sign, z0, reach, size=0.0, rot=None,
+                 hc=None):
+    """A floor (z0 = 0, up +1) or ceiling sheet skipped for a body at
+    height pz: every sheet row's distance is at least the body's lowest
+    height above the sheet (``sphere``: pz is the centre, size the radius;
+    ``box``: pz the core box centre, ``rot`` its rotation, ``hc`` its core
+    half extents, size = dist_m) minus size."""
+    h = up_sign * (pz - z0)
+    if kind == "sphere":
+        return torch.abs(h) - size >= reach + CULL_SLACK
+    r = (hc[0] * torch.abs(rot[2][0]) + hc[1] * torch.abs(rot[2][1])
+         + hc[2] * torch.abs(rot[2][2]))
+    return h - r - size >= reach + CULL_SLACK

@@ -8,6 +8,9 @@ import ast
 from pathlib import Path
 
 import pytest
+import torch
+
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "reinforcement_learning_tpu",

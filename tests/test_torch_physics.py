@@ -40,6 +40,8 @@ from reinforcement_learning_torch.ops import arena_step as arena_step_mod
 from reinforcement_learning_torch.ops import ctick as tctick
 from reinforcement_learning_torch.physics import step as tstep
 
+torch.set_num_threads(1)
+
 E, CARS = 8, 4
 TEAMS = (0, 0, 1, 1)
 DATA = os.path.join(os.path.dirname(__file__), "data")
@@ -424,8 +426,6 @@ def regenerate(which=("plane", "mesh")):
 
 # ---------------------------------------------------------------------------
 # the tests
-
-torch.set_num_threads(1)
 
 
 def _params():
