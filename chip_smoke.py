@@ -49,16 +49,34 @@ Phases, each of which must pass (nothing is caught):
    and one more split into collect, values + GAE + Welford, and update;
 7. one ``train_iteration`` each in heatseeker and snowday at the same
    width, with the end-state check, work count and timing of step 5;
-8. the full-fidelity collection at 8 arenas on the card against the plain
+8. [train_2v2], the canonical training program, built from the twin's
+   own ``make_env``, ``auto_scale``, ``ppo_config``, ``trainer_config``
+   and ``selfplay_config`` (512 x 2v2, the 13-term reward stack, the
+   768-wide model at scale 1.5, AdamW, leaky ReLU, user metrics,
+   self-play with skill matches, checkpoints), deviating from the example
+   in two points it prints (the second timed iteration trains against an
+   old version for certain; skill matches run every iteration): a warm-up
+   that snapshots version 0 and 3 timed iterations with the launch count
+   set to 0 before and read after (48 env steps each and 675 for each
+   skill match), the old team's rows weighted 0, the bank's copy apart
+   from the trained parameters, the ratings moved by the ELO rule for the
+   goals counted, every metric finite; the kernel against the plain
+   version on its end state (E=512) and on the skill match's (E=16), each
+   timed with its bound; one env step of 32 played arenas on the card
+   against the plain path on the CPU; a checkpoint saved under ``build/``
+   and resumed bit-equal into a fresh trainer through ``init_or_resume``,
+   which trains one more iteration; then one iteration of the train_1v1
+   twin (256 x 1v1) and the kernel on its end state (E=256, C=2);
+9. the full-fidelity collection at 8 arenas on the card against the plain
    path on the CPU, deterministic actions, fp32.
 
 Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` and allows
 at most one arena (0.1% of 1024) with a differing boolean or integer,
 none in the demo, car-car and game-mode states.  Prints the card's name
 and power limit, a ``kernels`` JSON line with one entry per configuration
-(soccar plane arena, soccar full fidelity, heatseeker, snowday), and as
-its last line ``{"ok": true, "device": {...}}``.  Exits non-zero without
-a CUDA card or without the repository beside it.
+(soccar plane arena, soccar full fidelity, heatseeker, snowday, the
+train_2v2 path), and as its last line ``{"ok": true, "device": {...}}``.
+Exits non-zero without a CUDA card or without the repository beside it.
 """
 
 from __future__ import annotations
@@ -113,20 +131,21 @@ def compare(name, got, want, allowed_arenas):
     from reinforcement_learning_torch.ops.ctick import (DEFAULT_TOLERANCE,
                                                         TOLERANCES)
     g, w = flatten(got), flatten(want)
-    bad = torch.zeros(E, dtype=torch.bool, device=g["arena.tick_count"].device)
+    n = w["arena.tick_count"].shape[0]
+    bad = torch.zeros(n, dtype=torch.bool, device=g["arena.tick_count"].device)
     flips = {}
     for k, a in w.items():
         if a.dtype.is_floating_point and k not in EVENT_TIMERS:
             continue
         if k in EVENT_TIMERS:
             atol, rtol = TOLERANCES.get(k, DEFAULT_TOLERANCE)
-            d = ((g[k] - a).abs() > atol + rtol * a.abs()).reshape(E, -1)
+            d = ((g[k] - a).abs() > atol + rtol * a.abs()).reshape(n, -1)
             d = d.any(-1)
             for e in d.nonzero()[:, 0].tolist()[:4]:
                 print(f"[{name}] arena {e}: {k} kernel {g[k][e].tolist()} "
                       f"plain {a[e].tolist()}")
         else:
-            d = (g[k] != a).reshape(E, -1).any(-1)
+            d = (g[k] != a).reshape(n, -1).any(-1)
         if d.any():
             flips[k] = d.nonzero()[:, 0].tolist()
         bad |= d
@@ -828,6 +847,42 @@ def drive_path(label, env, params, card, gen, T_steps):
                         card, gen)}
 
 
+def raw_kernel(lib, phys, ctl, r, params, teams):
+    """(a function launching the kernel alone on the packed buffers of
+    ``phys``, the bytes the launch reads and writes)."""
+    import torch
+    from reinforcement_learning_torch.ops import arena_step as A
+    n, P = phys.cars.boost.shape
+    f, i, u = A._pack(phys)
+    ctl_k = ctl.permute(2, 1, 0).contiguous()
+    r_k = r.transpose(0, 1).contiguous()
+    outs = [torch.empty_like(x) for x in (f, i, u)]
+    prm = A.pack_params(params, teams)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        e = lib.arena_step_launch(
+            prm.ctypes.data, prm.nbytes, f.data_ptr(), i.data_ptr(),
+            u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr(), ctl_k.data_ptr(), r_k.data_ptr(), n, P,
+            8, 7, stream)
+        if e:
+            fail(f"kernel launch error {e}")
+    nbytes = sum(x.numel() * x.element_size()
+                 for x in (f, i, u, *outs, ctl_k, r_k))
+    return raw, nbytes
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by, bytes_ms, ops_ms): the larger of the bytes
+    over the memory rate and the fp32 ops over the fp32 rate."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FP32_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", bytes_ms,
+            ops_ms)
+
+
 def end_state(label, trainer, tstate, actions, params, card, gen):
     """Hold the kernel to the plain version on the state a path ends in,
     stepped with ``actions``, the plain run counting the work its inputs
@@ -841,10 +896,10 @@ def end_state(label, trainer, tstate, actions, params, card, gen):
     teams = tuple(int(t) for t in env.teams_np)
     consts = A._consts(params, teams)
     lib = A._library()
-    P = CARS
     phys = tstate.env_states.phys
+    n, P = phys.cars.boost.shape
     ctl = env.action_parser.parse(actions)
-    r = torch.randint(0, 4, (E, CARS), generator=gen,
+    r = torch.randint(0, 4, (n, P), generator=gen,
                       device=phys.cars.pos.device, dtype=torch.int32)
     work = opcount.step_work(phys, ctl, r, consts)
     got = A.arena_step(phys, ctl, r, params, teams)
@@ -858,29 +913,16 @@ def end_state(label, trainer, tstate, actions, params, card, gen):
                         for k, (n, b) in work.by_gate.items()}))
 
     # kernel time alone, on the path's end state and shapes
-    f, i, u = A._pack(phys)
-    ctl_k = ctl.permute(2, 1, 0).contiguous()
-    r_k = r.transpose(0, 1).contiguous()
-    outs = [torch.empty_like(x) for x in (f, i, u)]
-    prm = A.pack_params(params, teams)
+    raw, nbytes = raw_kernel(lib, phys, ctl, r, params, teams)
     stream = torch.cuda.current_stream().cuda_stream
-
-    def raw():
-        e = lib.arena_step_launch(
-            prm.ctypes.data, prm.nbytes, f.data_ptr(), i.data_ptr(),
-            u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
-            outs[2].data_ptr(), ctl_k.data_ptr(), r_k.data_ptr(), E, CARS,
-            8, 7, stream)
-        if e:
-            fail(f"kernel launch error {e}")
     kernel_ms = cuda_ms(raw, reps=10, warmup=2)
     wrapper_ms = cuda_ms(lambda: A._launch(lib, phys, ctl, r, params, teams,
                                            8, 7, stream), reps=5)
     plain_ms = cuda_ms(lambda: ctick.arena_step_reference(phys, ctl, r,
                                                           consts),
                        reps=1, warmup=0)
-    flat_obs = tstate.obs.reshape(E * P, -1)
-    flat_mask = tstate.masks.reshape(E * P, -1)
+    flat_obs = tstate.obs.reshape(n * P, -1)
+    flat_mask = tstate.masks.reshape(n * P, -1)
     policy_ms = cuda_ms(lambda: trainer.learner.sample_actions(
         flat_obs, flat_mask, generator=gen), reps=10)
     env_ms = cuda_ms(lambda: env.step(tstate.env_states, actions), reps=10)
@@ -888,19 +930,18 @@ def end_state(label, trainer, tstate, actions, params, card, gen):
         flat_obs, flat_mask, generator=gen))[1]
     env_calls = opcount.count_ops(lambda: env.step(tstate.env_states,
                                                    actions))[1]
+    phys_calls = opcount.count_ops(lambda: env.physics_step(
+        tstate.env_states, ctl))[1]
     print(f"[{label}] per env step: policy sample {policy_ms:.3f} ms, "
           f"env.step {env_ms:.3f} ms of which arena_step {wrapper_ms:.3f} "
           f"ms (kernel {kernel_ms:.3f} ms) (CUDA events); tensor ops "
-          f"dispatched: policy sample {policy_calls}, env.step {env_calls}")
-    nbytes = sum(x.numel() * x.element_size()
-                 for x in (f, i, u, *outs, ctl_k, r_k))
+          f"dispatched: policy sample {policy_calls}, env.step {env_calls} "
+          f"(the physics step {phys_calls}, post-physics "
+          f"{env_calls - phys_calls})")
     ops = work.ops_needed
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = ops / PEAK_FP32_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    print(f"[{label}] kernel {kernel_ms:.4f} ms/env step (E={E}, "
-          f"C={CARS}); with pack/unpack {wrapper_ms:.4f} ms; plain version "
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(nbytes, ops)
+    print(f"[{label}] kernel {kernel_ms:.4f} ms/env step (E={n}, "
+          f"C={P}); with pack/unpack {wrapper_ms:.4f} ms; plain version "
           f"{plain_ms:.2f} ms; bound {bound_ms:.5f} ms by {bound_by} "
           f"({nbytes} bytes -> {bytes_ms:.5f} ms, {ops:.4g} fp32 ops these "
           f"inputs need -> {ops_ms:.5f} ms; the branch-free plain version "
@@ -1021,6 +1062,400 @@ def mode_path(label, mode, card, gen):
     return {"launches": launches,
             **end_state(label, trainer, state, actions.reshape(E, CARS),
                         trainer.env.params, card, gen)}
+
+
+# ---------------------------------------------------------------------------
+# the canonical training program: the train_2v2 and train_1v1 twins
+
+class Timers:
+    """Methods wrapped so that each call is timed on the host clock,
+    synchronised with the card before and after; seconds summed by
+    name."""
+
+    def __init__(self):
+        self.s = {}
+
+    def wrap(self, obj, attr, name):
+        import torch
+        fn = getattr(obj, attr)
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t
+            return out
+        setattr(obj, attr, timed)
+
+
+def kernel_at(label, env, phys, actions, card, gen):
+    """The kernel against the plain version on ``phys`` stepped with
+    ``actions``, the plain run counting the work the inputs need; the
+    kernel's time and bound there.  Returns (ms, bound_ms, bound_by,
+    deviation)."""
+    import torch
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.ops import opcount
+    params, teams = env.params, tuple(int(t) for t in env.teams_np)
+    n, P = phys.cars.boost.shape
+    ctl = env.action_parser.parse(actions)
+    r = torch.randint(0, 4, (n, P), generator=gen, device=actions.device,
+                      dtype=torch.int32)
+    work = opcount.step_work(phys, ctl, r, A._consts(params, teams))
+    got = A.arena_step(phys, ctl, r, params, teams)
+    torch.cuda.synchronize()
+    err = compare(f"{label}_end_state", got, work.out, 1)
+    raw, nbytes = raw_kernel(A._library(), phys, ctl, r, params, teams)
+    ms = cuda_ms(raw, reps=10, warmup=2)
+    bound_ms, bound_by, bytes_ms, ops_ms = bound(nbytes, work.ops_needed)
+    print(f"[{label}] kernel {ms:.4f} ms/env step (E={n}, C={P}); bound "
+          f"{bound_ms:.5f} ms by {bound_by} ({nbytes} bytes -> "
+          f"{bytes_ms:.5f} ms, {work.ops_needed:.4g} fp32 ops these inputs "
+          f"need -> {ops_ms:.5f} ms); card {card}")
+    return ms, bound_ms, bound_by, err
+
+
+def one_step_agrees(label, trainer, state, make_env, sub=32):
+    """One env step of the twin's config from the played state's first
+    ``sub`` arenas: the kernel on the card against the plain version on
+    the CPU, the same actions, respawn draws and kickoff shuffles; obs,
+    final obs, reward, every reward component, terminal and masks within
+    ``small_collect_agrees``' tolerances."""
+    import torch
+    from reinforcement_learning_torch import constants as C
+    from reinforcement_learning_torch.device import tree_map
+    from reinforcement_learning_torch.envs import state_setters
+    from reinforcement_learning_torch.ops import arena_step as A
+    states = tree_map(lambda t: t[:sub], state.env_states)
+    obs, masks = state.obs[:sub], state.masks[:sub]
+    P = obs.shape[1]
+    actions = trainer.learner.sample_actions(
+        obs.reshape(sub * P, -1), masks.reshape(sub * P, -1),
+        deterministic=True)[0].reshape(sub, P)
+    order = torch.randperm(C.CAR_SPAWN_LOCATION_AMOUNT).repeat(sub, 1)
+    r = torch.randint(0, 4, (sub, P), dtype=torch.int32)
+    outs = {}
+    for where in ("cuda", "cpu"):
+        env = make_env(sub, device=where)
+        env.state_setter = state_setters.kickoff_state(
+            order_fn=lambda n, g, d: order[:n].to(d))
+        st = tree_map(lambda t: t.to(where), states)
+        ctl = env.action_parser.parse(actions.to(where))
+        phys = A.arena_step(st.phys, ctl, r.to(where), env.params,
+                            env.teams_np)
+        outs[where] = env.post_physics(st, phys, ctl)[1]
+    kern, plain = outs["cuda"], outs["cpu"]
+    floats = {"obs": (kern.obs, plain.obs),
+              "final_obs": (kern.final_obs, plain.final_obs),
+              "reward": (kern.reward, plain.reward)}
+    floats.update({f"reward/{k}": (v, plain.reward_components[k])
+                   for k, v in kern.reward_components.items()})
+    worst = {}
+    for k, (a, b) in floats.items():
+        worst[k] = float((a.cpu() - b).abs().max())
+        if worst[k] > 2e-3:
+            fail(f"{label}: {k} differs by {worst[k]:.3g} between the "
+                 "kernel on the card and the plain version on the CPU "
+                 "(tol 2e-3)")
+    for k in ("terminal_type", "action_mask", "goal_scored",
+              "ball_touched"):
+        if not torch.equal(getattr(kern, k).cpu(), getattr(plain, k)):
+            fail(f"{label}: {k} differs between the card and the CPU")
+    print(f"[{label}] one env step of {sub} played arenas, kernel on the "
+          f"card vs plain on the CPU: max |diff| " + json.dumps(
+              {k: float(f"{v:.3g}") for k, v in worst.items()})
+          + f"; terminals {int((plain.terminal_type > 0).sum())}, "
+          f"touches {int(plain.ball_touched.sum())}")
+
+
+def same_snapshot(label, a, b):
+    """Every tensor and number of two checkpoint snapshots equal."""
+    import torch
+    from reinforcement_learning_torch.utils import checkpoint as ckpt
+    fa, fb = ckpt.flatten(a), ckpt.flatten(b)
+    if set(fa) != set(fb):
+        fail(f"{label}: the resumed state lacks {sorted(set(fa) ^ set(fb))}")
+    n = 0
+    for k, v in fa.items():
+        w = fb[k]
+        if isinstance(v, torch.Tensor):
+            same = (v.dtype == w.dtype and v.shape == w.shape
+                    and torch.equal(v.cpu(), w.cpu()))
+            n += 1
+        else:
+            same = v == w
+        if not same:
+            fail(f"{label}: {k} differs after the resume")
+    return n
+
+
+def twin_path(card, gen):
+    """[train_2v2]: the canonical training program, built from the twin's
+    own ``make_env``, ``auto_scale``, ``ppo_config``, ``trainer_config``
+    and ``selfplay_config`` (512 x 2v2, the 13-term reward stack, the
+    768-wide model, AdamW, leaky ReLU, self-play with skill matches, user
+    metrics, checkpoints), with two deviations, printed: the second timed
+    iteration trains against an old version for certain, and skill matches
+    run every iteration.  A warm-up and 3 timed iterations with the launch
+    count set to 0 before and read after; the self-play checks; the kernel
+    against the plain version on the end state at E=512, on the skill
+    match's state at E=16 and after one train_1v1 iteration at E=256, C=2;
+    one env step on the card against the CPU; a checkpoint saved and
+    resumed bit-equal into a fresh trainer, which trains one more
+    iteration.  Returns the path's ``kernels`` entry."""
+    import dataclasses
+    import math
+    import shutil
+
+    import torch
+    from reinforcement_learning_torch.examples import train_1v1
+    from reinforcement_learning_torch.examples import train_2v2 as twin
+    from reinforcement_learning_torch.learn import selfplay as sp
+    from reinforcement_learning_torch.learn.trainer import Trainer
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.utils import checkpoint as ckpt
+    from reinforcement_learning_torch.utils.metrics import MetricSender
+    from reinforcement_learning_torch.utils.report import Report
+    label = "train_2v2"
+    games = twin.NUM_GAMES
+    scale = twin.auto_scale(games)
+    ppo = twin.ppo_config(scale)
+    spc = twin.selfplay_config()
+    spc = dataclasses.replace(spc, skill=dataclasses.replace(
+        spc.skill, update_interval=1))
+    folder = os.path.join(ROOT, "build", "chip_smoke", "train_2v2")
+    shutil.rmtree(folder, ignore_errors=True)
+    print(f"[{label}] deviations from the example: train_against_old_chance "
+          f"1.0 in the second timed iteration (the example: "
+          f"{twin.selfplay_config().train_against_old_chance}); skill "
+          f"update_interval 1 (the example: "
+          f"{twin.selfplay_config().skill.update_interval}); checkpoints "
+          f"and metrics under {os.path.relpath(folder, ROOT)}")
+
+    def make_trainer():
+        return Trainer(twin.make_env(games), ppo, twin.trainer_config(folder),
+                       selfplay=spc, step_metrics_fn=twin.step_metrics)
+    trainer = make_trainer()
+    env = trainer.env
+    counts = trainer.learner.param_counts()
+    T2 = trainer.steps_per_itr
+    E2, P = env.config.num_envs, env.config.cars_per_arena
+    if (scale != 1.5 or counts["total"] != 4_345_435 or T2 != 48
+            or ppo.optim != "adamw" or ppo.activation != "leaky_relu"
+            or len(env.reward_fns) != 13):
+        fail(f"{label}: not the example's configuration: scale {scale}, "
+             f"params {counts}, {T2} env steps per iteration")
+    print(f"[{label}] scale {scale}: shared {list(ppo.shared_head_layers)}, "
+          f"policy {list(ppo.policy_layers)}, critic "
+          f"{list(ppo.critic_layers)}, params {counts}; {E2} x 2v2, {T2} "
+          f"env steps = {T2 * E2 * P} rows per iteration, batch "
+          f"{ppo.batch_size}, {ppo.epochs} epochs, {ppo.optim}, "
+          f"{ppo.activation}; rewards "
+          f"{[(w.name, w.weight) for w in env.reward_fns]}")
+
+    timers = Timers()
+    timers.wrap(trainer, "collect", "collect")
+    timers.wrap(trainer, "prepare", "values + GAE + Welford")
+    timers.wrap(trainer.learner, "update", "update")
+    timers.wrap(trainer.skill_tracker, "run_matches", "skill match")
+    seen = {"matches": []}
+    tracker = trainer.skill_tracker
+    timed_matches = tracker.run_matches
+
+    def checked_matches(learner, bank, rng):
+        # the ELO rule for the goals counted, from the ratings before
+        before = bank.ratings.clone()
+        cur0 = float(sp.current_rating(bank))
+        last = (bank.next_slot - 1) % before.shape[0]
+        out = timed_matches(learner, bank, rng)
+        _, cur, info = out
+        idx, c = info["opponent_idx"], cur0
+        o = float(before[idx])
+        for _ in range(info["new_goals"]):
+            c, o = sp.elo_update(c, o, spc.skill.rating_inc)
+        for _ in range(info["old_goals"]):
+            o, c = sp.elo_update(o, c, spc.skill.rating_inc)
+        want = before.clone()
+        want[idx] = o
+        want[last] = c
+        if cur != c or not torch.equal(bank.ratings, want):
+            fail(f"{label}: ratings {bank.ratings.tolist()} after "
+                 f"{info}, the ELO rule gives {want.tolist()}")
+        seen["matches"].append(info)
+        return out
+    tracker.run_matches = checked_matches
+    learn = trainer.learn
+
+    def spy_learn(state, traj, perms=None, weight=None):
+        seen["weight"], seen["shape"] = weight, traj["action"].shape
+        return learn(state, traj, perms=perms, weight=weight)
+    trainer.learn = spy_learn
+
+    # warm-up: snapshots version 0 before its update
+    first = [p.detach().clone() for p in trainer.learner.policy.parameters()]
+    state = trainer.init_or_resume()
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    version = sp.get_version(trainer.bank, 0)["policy"]
+    if trainer.bank.count != 1 or not all(
+            torch.equal(a, b) for a, b in zip(version.values(), first)):
+        fail(f"{label}: version 0 is not the parameters before the update")
+
+    # 3 timed iterations
+    before = [p.detach().clone() for p in trainer.learner.parameters()]
+    timers.s.clear()
+    n_matches = len(seen["matches"])
+    A.arena_step.launches = 0
+    per_iter = []
+    t0 = time.perf_counter()
+    for i in range(3):
+        trainer.selfplay = dataclasses.replace(
+            spc, train_against_old_chance=1.0) if i == 1 else spc
+        seen["weight"] = None
+        t = time.perf_counter()
+        state, metrics = trainer.train_iteration(state)
+        torch.cuda.synchronize()
+        per_iter.append(time.perf_counter() - t)
+        extra = dict(trainer.last_selfplay_metrics)
+        if i == 1:
+            w = seen["weight"]
+            if extra.get("trained_against_old") != 1.0 or w is None:
+                fail(f"{label}: the second iteration did not train against "
+                     "an old version")
+            w = w.reshape(seen["shape"])
+            per_player = w[0, 0]
+            old = per_player == 0
+            teams = env.teams
+            if not (torch.equal(w, per_player.expand_as(w))
+                    and int(old.sum()) == P // 2
+                    and len(set(teams[old].tolist())) == 1):
+                fail(f"{label}: old-team weights {per_player.tolist()}")
+            print(f"[{label}] iteration {i + 1} trained against an old "
+                  f"version: team {int(teams[old][0])}'s rows weight 0, "
+                  f"{int((w == 0).sum())} of {w.numel()} rows")
+    wall = time.perf_counter() - t0
+    launches = A.arena_step.launches
+    matches = len(seen["matches"]) - n_matches
+    want = 3 * T2 + matches * tracker.steps_per_run
+    if launches != want or matches != 3:
+        fail(f"{label}: arena_step launched {launches} times in 3 "
+             f"iterations of {T2} env steps and {matches} skill matches of "
+             f"{tracker.steps_per_run} (want {want})")
+    if all(torch.equal(a, b) for a, b in zip(
+            trainer.learner.policy.parameters(), version.values())):
+        fail(f"{label}: the bank's version follows the trained parameters")
+    logged = {**metrics, **extra}
+    missing = [w.name for w in env.reward_fns
+               if f"reward/{w.name}" not in logged]
+    user = [k for k in logged if k.startswith(("Player/", "Game/"))]
+    if missing or len(user) != 8:
+        fail(f"{label}: metrics lack the rewards {missing} or user "
+             f"metrics (have {user})")
+    check_metrics(label, logged, before, trainer.learner)
+    Report(logged).display()
+    sender = MetricSender(fallback_path=os.path.join(folder,
+                                                     "metrics.jsonl"),
+                          use_wandb=False)
+    sender.send({k: float(v) for k, v in logged.items()},
+                step=state.iterations)
+    sender.close()
+    split = dict(timers.s)
+    core = sum(split[k] for k in ("collect", "values + GAE + Welford",
+                                  "update"))
+    split["self-play host logic"] = wall - core - split["skill match"]
+    steps = 3 * T2 * E2 * P
+    print(f"[{label}] warm-up {warm:.3f} s; 3 iterations in {wall:.3f} s: "
+          + ", ".join(f"{t:.3f}" for t in per_iter) + f" s; "
+          f"{steps / wall:.0f} player-steps/s with the skill matches, "
+          f"{steps / (wall - split['skill match']):.0f} without; launches "
+          f"{launches} ({3 * T2} in the iterations, {matches} skill matches "
+          f"x {tracker.steps_per_run}); card {card}")
+    print(f"[{label}] split of the 3 iterations (host clock, synchronised "
+          f"around each part), s: " + json.dumps(
+              {k: round(v, 4) for k, v in split.items()}))
+    print(f"[{label}] skill matches: " + json.dumps(seen["matches"])
+          + f"; ratings {trainer.bank.ratings[:trainer.bank.count].tolist()}")
+
+    # the kernel on the end state (E=512) and the skill match's (E=16)
+    actions = trainer.learner.sample_actions(
+        state.obs.reshape(E2 * P, -1), state.masks.reshape(E2 * P, -1),
+        generator=gen)[0].reshape(E2, P)
+    entry = {"launches": launches,
+             **end_state(label, trainer, state, actions, env.params, card,
+                         gen)}
+    err = entry.pop("end_err")
+    sst, sobs, smasks = tracker.env_states
+    sa = trainer.learner.sample_actions(
+        sobs.reshape(-1, sobs.shape[-1]), smasks.reshape(
+            -1, smasks.shape[-1]), generator=gen)[0].reshape(sobs.shape[:2])
+    skill = kernel_at("skill_match", tracker.env, sst.phys, sa, card, gen)
+    err = max(err, skill[3])
+    print(f"[skill_match] E={tracker.env.config.num_envs}: kernel "
+          f"{skill[0]:.4f} ms, bound {skill[1]:.5f} ms; launches on this "
+          f"path {matches * tracker.steps_per_run}")
+
+    # one env step of this config, the card against the CPU
+    one_step_agrees(label, trainer, state, twin.make_env)
+
+    # checkpoint: save, resume into a fresh trainer bit-equal, go on
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    path = trainer.save(state)
+    save_s = time.perf_counter() - t
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    saved = ckpt.snapshot(trainer, state)
+    fresh = make_trainer()
+    t = time.perf_counter()
+    resumed = fresh.init_or_resume()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    n = same_snapshot(label, saved, ckpt.snapshot(fresh, resumed))
+    if resumed.total_timesteps != state.total_timesteps:
+        fail(f"{label}: resumed at {resumed.total_timesteps} steps")
+    t = time.perf_counter()
+    resumed, m2 = fresh.train_iteration(resumed)
+    torch.cuda.synchronize()
+    bad = [k for k, v in m2.items() if not math.isfinite(float(v))]
+    if bad:
+        fail(f"{label}: metrics after the resume not finite: {bad}")
+    print(f"[{label}] checkpoint {os.path.relpath(path, ROOT)}: {nbytes} "
+          f"bytes, save {save_s:.3f} s, load into a fresh trainer "
+          f"{load_s:.3f} s; {n} tensors of the resumed state bit-equal to "
+          f"the saved; one more iteration {time.perf_counter() - t:.3f} s "
+          f"(iteration {resumed.iterations}); card {card}")
+    del fresh, trainer
+
+    # the train_1v1 twin: one iteration, then the kernel on its end state
+    tr1 = Trainer(train_1v1.make_env(), train_1v1.ppo_config(),
+                  train_1v1.trainer_config())
+    e1, p1 = tr1.env.config.num_envs, tr1.env.config.cars_per_arena
+    s1 = tr1.init(SEED)
+    b1 = [p.detach().clone() for p in tr1.learner.parameters()]
+    A.arena_step.launches = 0
+    t = time.perf_counter()
+    s1, m1 = tr1.train_iteration(s1)
+    torch.cuda.synchronize()
+    w1 = time.perf_counter() - t
+    l1 = A.arena_step.launches
+    if l1 != tr1.steps_per_itr:
+        fail(f"train_1v1: arena_step launched {l1} times in one iteration "
+             f"of {tr1.steps_per_itr} env steps")
+    check_metrics("train_1v1", m1, b1, tr1.learner)
+    print(f"[train_1v1] one train_iteration ({e1} x 1v1, "
+          f"{tr1.steps_per_itr} env steps, params "
+          f"{tr1.learner.param_counts()['total']}): {w1:.3f} s including "
+          f"first use, {tr1.steps_per_itr * e1 * p1 / w1:.0f} "
+          f"player-steps/s; launches {l1}")
+    a1 = tr1.learner.sample_actions(
+        s1.obs.reshape(e1 * p1, -1), s1.masks.reshape(e1 * p1, -1),
+        generator=gen)[0].reshape(e1, p1)
+    one = kernel_at("train_1v1", tr1.env, s1.env_states.phys, a1, card, gen)
+    err = max(err, one[3])
+    return {**entry, "max_abs_err": err}
 
 
 def main():
@@ -1372,7 +1807,10 @@ def main():
         entries[mode] = mode_path(mode, mode, card, gen)
         err[mode] = max(err[mode], entries[mode].pop("end_err"))
 
-    # 8. small collection on the card vs the plain path on the CPU -------
+    # 8. the canonical training program: train_2v2 and train_1v1 twins ---
+    entries["train_2v2"] = twin_path(card, gen)
+
+    # 9. small collection on the card vs the plain path on the CPU -------
     small_collect_agrees(dev, full)
 
     kernels = []
@@ -1388,6 +1826,13 @@ def main():
             "replaces": f"reinforcement_learning_tpu/ops/{where}",
             **entries[label], "max_abs_err": err[label],
             "library_ms": None})
+    kernels.append({
+        "name": "arena_step (soccar, full fidelity: train_2v2, 512 x 2v2, "
+                "13-term rewards, self-play with skill matches at 16 "
+                "arenas)", "route": "cuda",
+        "source": "reinforcement_learning_torch/csrc/arena_step.cu",
+        "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
+        **entries["train_2v2"], "library_ms": None})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

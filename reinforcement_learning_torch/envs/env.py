@@ -103,8 +103,12 @@ class RocketLeagueEnv:
 
     def __init__(self, config: EnvConfig,
                  reward_fns: Sequence[WeightedReward] | None = None,
+                 obs_builder=None, action_parser=None,
                  terminal_conds=None, state_setter=None,
                  event_config: eventsmod.EventConfig | None = None):
+        """``obs_builder`` and ``action_parser`` default to AdvancedObs
+        and DefaultAction on the env's device; one given must live on
+        it."""
         if config.arena is None:
             config = dataclasses.replace(config, arena=stepmod.ArenaParams(
                 num_cars=config.cars_per_arena, game_mode=config.game_mode))
@@ -118,8 +122,9 @@ class RocketLeagueEnv:
         self.teams = torch.as_tensor(self.teams_np, device=self.device)
         P = config.cars_per_arena
 
-        self.obs_builder = AdvancedObs(P, self.teams_np, self.device)
-        self.action_parser = DefaultAction(self.device)
+        self.obs_builder = obs_builder or AdvancedObs(P, self.teams_np,
+                                                      self.device)
+        self.action_parser = action_parser or DefaultAction(self.device)
         self.reward_fns = list(reward_fns) if reward_fns is not None else [
             WeightedReward(R.velocity_player_to_ball_reward(), 0.3),
             WeightedReward(R.touch_ball_reward(), 1.0),

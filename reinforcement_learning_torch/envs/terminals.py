@@ -47,6 +47,17 @@ def timeout_condition(timeout_seconds: float, step_seconds: float):
     return fn
 
 
+def score_limit_condition(limit_goals: int):
+    """Terminal when either team reaches ``limit_goals`` this episode
+    (ScoreLimitCondition, ExampleMain.cpp:46-82), from the env's episode
+    score counters, which count every goal step as the reference's do."""
+    def fn(ctx):
+        return _select((ctx.blue_score >= limit_goals)
+                       | (ctx.orange_score >= limit_goals), NORMAL)
+    fn.__name__ = "ScoreLimitCondition"
+    return fn
+
+
 def combine_conditions(conds):
     """EnvSet.cpp:166-180: NOT < TRUNCATED < NORMAL precedence."""
     def fn(ctx):

@@ -35,7 +35,12 @@ def test_the_port_has_its_modules():
     for mod in ("constants", "maths", "physics/state", "physics/step",
                 "ops/pack", "ops/ctick", "ops/arena_step", "envs/env",
                 "envs/obs", "models/mlp", "learn/ppo", "learn/trainer",
-                "learn/gae", "learn/welford"):
+                "learn/gae", "learn/welford", "learn/optim",
+                "learn/selfplay", "learn/transfer", "envs/rewards",
+                "envs/kickoff_reward", "envs/terminals",
+                "envs/state_setters", "utils/checkpoint", "utils/metrics",
+                "utils/report", "utils/render", "utils/keypress",
+                "examples/train_2v2", "examples/train_1v1"):
         assert f"reinforcement_learning_torch/{mod}.py" in names, mod
     assert (ROOT / "reinforcement_learning_torch/csrc/arena_step.cu").exists()
 

@@ -274,9 +274,17 @@ def test_update_draws_its_own_permutations():
 
 @pytest.mark.parametrize("optim", ["adamw", "adagrad", "rmsprop"])
 def test_unported_optimizers_raise(optim):
-    with pytest.raises(NotImplementedError):
-        tppo.PPOLearner(OBS, ACTIONS, tppo.PPOConfig(**_cfg(optim=optim)),
-                        device="cpu")
+    """These raised until they were ported in optax's form (their steps
+    are held against optax in tests/test_torch_services.py): each model
+    now gets its own, and a name outside the JAX package's set raises."""
+    from reinforcement_learning_torch.learn.optim import OPTIMIZERS
+    tl = tppo.PPOLearner(OBS, ACTIONS, tppo.PPOConfig(**_cfg(optim=optim)),
+                         device="cpu")
+    assert set(tl.optimizers) == set(MODELS)
+    assert all(type(o) is OPTIMIZERS[optim] for o in tl.optimizers.values())
+    with pytest.raises(ValueError):
+        tppo.PPOLearner(OBS, ACTIONS, tppo.PPOConfig(**_cfg(
+            optim=optim + "_")), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +448,13 @@ def test_train_iteration_runs_on_the_cpu(trained):
 
 
 def test_trainer_raises_for_what_is_not_ported(trained):
+    """Self-play and checkpoints are ported now (tests/test_torch_selfplay
+    .py, tests/test_torch_services.py).  What still raises: hoops, which
+    needs the portable physics path, and a guiding policy without a
+    guiding strength, as in the JAX package."""
     tr = trained[0]
+    with pytest.raises(ValueError):
+        ttrainer.Trainer(tr.env, tr.ppo_config, guiding_params=tr.learner)
     with pytest.raises(NotImplementedError):
-        ttrainer.Trainer(tr.env, tr.ppo_config,
-                         selfplay=object()).train_iteration(trained[1])
-    cfg = ttrainer.TrainerConfig(checkpoint_folder="ckpt")
-    with pytest.raises(NotImplementedError):
-        ttrainer.Trainer(tr.env, tr.ppo_config, cfg).train(trained[1], 1)
+        tenv.RocketLeagueEnv(tenv.EnvConfig(num_envs=1, game_mode="hoops",
+                                            device="cpu"))
