@@ -67,7 +67,28 @@ Phases, each of which must pass (nothing is caught):
    and resumed bit-equal into a fresh trainer through ``init_or_resume``,
    which trains one more iteration; then one iteration of the train_1v1
    twin (256 x 1v1) and the kernel on its end state (E=256, C=2);
-9. the full-fidelity collection at 8 arenas on the card against the plain
+9. [deploy], the trained policies into a match: the checkpoint step 8
+   wrote (768 wide, leaky ReLU) into ``InferUnit`` on the card, its
+   logits on 4,096 obs rows of a collection against the trainer's own
+   fp32 forward; step 6's bench-shape ReLU model exported to the C++
+   runtime (deploy/native), held on the host against ``InferUnit`` on the
+   card and the port's CPU forward, deterministic actions differing only
+   within the top-two margin; a scripted 2v2 session of 600 ticks at
+   tick_skip 8 and action_delay 7 through the native bot server (the
+   "add" command, four bots), through ``RLBotAdapter`` on the same
+   runtime (equal controls at every tick) and on the card's
+   ``InferUnit``; the converter's round trips (checkpoint -> .pt -> .npz
+   and -> .lt -> .npz, into ``InferUnit``, logits bit-equal); the time of
+   a decision on the card and on the host at batch 1 and 4 and of one
+   ``RLBotAdapter.get_output`` that infers;
+10. [geometry], the portable engine's arena geometry: the procedural
+   soccar and hoops ``MeshGrid``s baked onto the card (``world.get_grid``);
+   ``sphere_contacts`` for 1,024 balls, ``raycast`` for 1,024 x 4 x 4
+   wheel rays and ``box_contacts`` for 4,096 car hitboxes, drawn from the
+   states step 5's full-fidelity warm-up collection stepped from, and
+   ``box_box_manifold`` on 4,096 overlapping car pairs, each on the card
+   against the CPU and timed;
+11. the full-fidelity collection at 8 arenas on the card against the plain
    path on the CPU, deterministic actions, fp32.
 
 Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` and allows
@@ -808,11 +829,13 @@ def check_traj(label, env, traj, T_steps):
         fail(f"{label}: log-probabilities above 0")
 
 
-def drive_path(label, env, params, card, gen, T_steps):
+def drive_path(label, env, params, card, gen, T_steps, record=False):
     """Collect ``T_steps`` env steps of 1024 x 2v2 on ``env`` through the
     normal entry points, with the kernel's launch count set to 0 just
     before and read just after; check the trajectory; then ``end_state``
-    on the state it ends in.  Returns the path's ``kernels`` entry."""
+    on the state it ends in.  Returns the path's ``kernels`` entry; with
+    ``record``, also the ball and car positions and rotations of every
+    state the warm-up collection stepped from (``"positions"``)."""
     import torch
     from reinforcement_learning_torch.learn.trainer import (Trainer,
                                                             TrainerConfig)
@@ -825,7 +848,18 @@ def drive_path(label, env, params, card, gen, T_steps):
           f"use_mesh={params.use_mesh} "
           f"dynamic_wheel_rays={params.dynamic_wheel_rays}")
     tstate = trainer.init(SEED)
+    seen = []
+    if record:
+        step = env.step
+
+        def recording(st, act):
+            seen.append((st.phys.ball.pos.clone(), st.phys.cars.pos.clone(),
+                         st.phys.cars.rot.clone()))
+            return step(st, act)
+        env.step = recording
     tstate, _ = trainer.collect(tstate, T_steps)            # warm-up
+    if record:
+        del env.step
     torch.cuda.synchronize()
     A.arena_step.launches = 0
     t0 = time.perf_counter()
@@ -842,9 +876,12 @@ def drive_path(label, env, params, card, gen, T_steps):
           f"players in {wall:.3f} s = {steps_per_s:.0f} player-steps/s; "
           f"launches {launches}; goals {int(traj['goal'].sum())}, touches "
           f"{int(traj['touch'].sum())}")
-    return {"launches": launches,
-            **end_state(label, trainer, tstate, traj["action"][-1], params,
-                        card, gen)}
+    entry = {"launches": launches,
+             **end_state(label, trainer, tstate, traj["action"][-1], params,
+                         card, gen)}
+    if record:
+        entry["positions"] = [torch.cat(x) for x in zip(*seen)]
+    return entry
 
 
 def raw_kernel(lib, phys, ctl, r, params, teams):
@@ -976,7 +1013,9 @@ def train_path(card, gen):
     """The main path: ``Trainer.train_iteration`` at bench.py's shape.  One
     warm-up iteration, 3 timed ones with the kernel's launch count set to
     0 before and read after (24 per iteration), then one iteration split
-    into its parts.  Returns the launches of the timed iterations."""
+    into its parts.  Returns the launches of the timed iterations and, for
+    [deploy], the trained learner with the obs rows and masks of the
+    state it ends in."""
     import torch
     from bench_torch import bench_trainer
     from reinforcement_learning_torch.ops import arena_step as A
@@ -1026,7 +1065,9 @@ def train_path(card, gen):
           f"each part): collect {t_collect:.3f} s, values + GAE + Welford "
           f"{t_prep:.3f} s, update {t_update:.3f} s; total {total:.3f} s "
           f"({T * E * CARS / total:.0f} player-steps/s)")
-    return launches
+    return launches, {"learner": trainer.learner,
+                      "obs": state.obs.reshape(E * CARS, -1),
+                      "masks": state.masks.reshape(E * CARS, -1)}
 
 
 def mode_path(label, mode, card, gen):
@@ -1212,6 +1253,8 @@ def twin_path(card, gen):
     from reinforcement_learning_torch.examples import train_1v1
     from reinforcement_learning_torch.examples import train_2v2 as twin
     from reinforcement_learning_torch.learn import selfplay as sp
+    from reinforcement_learning_torch.learn.ppo import \
+        _full_fp32_matmul as full_fp32_matmul
     from reinforcement_learning_torch.learn.trainer import Trainer
     from reinforcement_learning_torch.ops import arena_step as A
     from reinforcement_learning_torch.utils import checkpoint as ckpt
@@ -1416,6 +1459,15 @@ def twin_path(card, gen):
     n = same_snapshot(label, saved, ckpt.snapshot(fresh, resumed))
     if resumed.total_timesteps != state.total_timesteps:
         fail(f"{label}: resumed at {resumed.total_timesteps} steps")
+    # for [deploy]: the saved learner's own fp32 forward on the obs rows of
+    # two more env steps
+    _, traj = trainer.collect(state, 2)
+    rows = traj["obs"].reshape(-1, traj["obs"].shape[-1])
+    with torch.no_grad(), full_fp32_matmul():
+        own = trainer.learner.policy(trainer.learner.shared_head(rows))
+    handoff = {"checkpoint": path, "ppo": ppo, "obs": rows,
+               "masks": traj["mask"].reshape(-1, traj["mask"].shape[-1]),
+               "logits": own, "params": counts["total"]}
     t = time.perf_counter()
     resumed, m2 = fresh.train_iteration(resumed)
     torch.cuda.synchronize()
@@ -1455,7 +1507,530 @@ def twin_path(card, gen):
         generator=gen)[0].reshape(e1, p1)
     one = kernel_at("train_1v1", tr1.env, s1.env_states.phys, a1, card, gen)
     err = max(err, one[3])
-    return {**entry, "max_abs_err": err}
+    return {**entry, "max_abs_err": err}, handoff
+
+
+def scripted_2v2(n_ticks):
+    """``n_ticks`` game ticks (120 Hz) of a scripted 2v2 as bot-server
+    packets: four cars circling on their own halves at different radii
+    and rates, each in the air for a second in four with its jump flag
+    set, boost draining from different levels to 0 and refilling, the ball
+    bouncing across the field and the pads switching in a pattern."""
+    import math
+
+    import numpy as np
+    packets = []
+    for t in range(n_ticks):
+        s = t / 120.0
+        players = []
+        for i in range(4):
+            team = i // 2
+            r, w = 500.0 + 350.0 * i, 0.7 + 0.3 * i
+            ph = w * s + i * math.pi / 2
+            air = (t // 120 + i) % 4 == 0
+            z = 17.01 + (180.0 * math.sin(math.pi * (t % 120) / 120)
+                         if air else 0.0)
+            players.append(dict(
+                pos=(r * math.cos(ph), r * math.sin(ph)
+                     + (2000.0 if team else -2000.0), z),
+                yaw=math.remainder(ph + math.pi / 2, 2 * math.pi),
+                pitch=0.3 * math.sin(3 * s + i) if air else 0.0,
+                roll=0.5 * math.sin(2 * s + i) if air else 0.0,
+                vel=(-r * w * math.sin(ph), r * w * math.cos(ph),
+                     (180.0 * math.pi * math.cos(math.pi * (t % 120) / 120))
+                     if air else 0.0),
+                ang_vel=(0.0, 0.0, w), boost=max(0.0, (33.0 * i - 20.0 * s)
+                                                 % 110.0 - 10.0),
+                team=team, is_on_ground=not air, has_jumped=air))
+        bx = 3000.0 * math.sin(0.4 * s)
+        bz = 93.15 + abs(600.0 * math.sin(1.3 * s))
+        packets.append(dict(
+            seconds_elapsed=s, ball_pos=(bx, 4000.0 * math.sin(0.23 * s), bz),
+            ball_vel=(1200.0 * math.cos(0.4 * s), 920.0 * math.cos(0.23 * s),
+                      780.0 * math.cos(1.3 * s)),
+            ball_ang_vel=(1.0, -2.0, 0.5 * math.sin(s)), players=players,
+            pads_active=np.array([(t // 90 + k) % 3 != 0 for k in range(34)]),
+            pads_timer=np.zeros(34, np.float32)))
+    return packets
+
+
+def packet_players(pkt):
+    """A scripted packet's players as ``RLBotAdapter`` takes them."""
+    import numpy as np
+    from reinforcement_learning_torch.deploy.rlbot_agent import PacketPlayer
+    return [PacketPlayer(
+        pos=np.asarray(p["pos"], np.float32), yaw=p["yaw"], pitch=p["pitch"],
+        roll=p["roll"], vel=np.asarray(p["vel"], np.float32),
+        ang_vel=np.asarray(p["ang_vel"], np.float32), boost=p["boost"],
+        team=p["team"], is_on_ground=p["is_on_ground"],
+        has_jumped=p["has_jumped"]) for p in pkt["players"]]
+
+
+def host_ms(fn, reps, warmup=3):
+    """Mean and largest host-clock time of ``fn`` in ms, each call ending
+    in a result on the host (so synchronised with the card)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sum(times) / reps, max(times)
+
+
+# the C++ runtime against torch's forward, as tests/test_native_infer.py
+# holds the JAX package's: |a - b| <= ATOL + RTOL |b|
+LOGIT_RTOL, LOGIT_ATOL = 2e-4, 2e-5
+DECISION_MS = 8 / 120 * 1e3    # one decision per 8 ticks at 120 Hz
+
+
+def top2_margin(logits, masks):
+    """The gap between the two largest legal logits of each row."""
+    import torch
+    top = torch.where(masks, logits, -torch.inf).topk(2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def flips_allowed(label, a, b, logits, masks):
+    """Deterministic actions ``a`` and ``b`` may differ only on rows whose
+    top-two margin is within twice the logit tolerance; returns the count
+    that differ."""
+    import torch
+    differ = (a.cpu() != b.cpu())
+    margin = top2_margin(logits, masks).cpu()
+    tol = 2 * (LOGIT_ATOL + LOGIT_RTOL * logits.abs().amax(-1).cpu())
+    bad = differ & (margin > tol)
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        fail(f"{label}: {int(bad.sum())} deterministic actions differ where "
+             f"the top-two margin allows none (row {i}: margin "
+             f"{float(margin[i]):.3g}, tolerance {float(tol[i]):.3g})")
+    return int(differ.sum())
+
+
+def deploy_path(card, bench, twin):
+    """[deploy]: the trained policies into a match.  The train_2v2
+    checkpoint into ``InferUnit`` on the card (its logits on 4,096 obs rows
+    against the trainer's own fp32 forward); the bench-shape ReLU model
+    from [train] exported to the C++ runtime and held on the host against
+    ``InferUnit`` on the card and the port's CPU forward; a scripted 2v2
+    session of 600 ticks through the bot server, through ``RLBotAdapter``
+    on the same runtime (equal controls) and through ``RLBotAdapter`` on
+    the card's ``InferUnit``; the converter's round trips; the time of a
+    decision on the card and on the host."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from reinforcement_learning_torch.deploy import bot_bridge, native
+    from reinforcement_learning_torch.deploy.infer import InferUnit
+    from reinforcement_learning_torch.deploy.rlbot_agent import RLBotAdapter
+    from reinforcement_learning_torch.envs.actions import DefaultAction
+    from reinforcement_learning_torch.envs.obs import AdvancedObs
+    from reinforcement_learning_torch.tools import checkpoint_converter as cv
+    label = "deploy"
+    folder = os.path.join(ROOT, "build", "chip_smoke", "deploy")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+
+    # the train_2v2 checkpoint (768 wide, leaky ReLU) on the card
+    ck = twin["checkpoint"]
+    t = time.perf_counter()
+    unit2 = InferUnit.from_checkpoint(ck, 2, twin["ppo"])
+    load_s = time.perf_counter() - t
+    got = unit2.logits(twin["obs"])
+    d = float((got - twin["logits"]).abs().max())
+    if unit2.learner.param_counts()["total"] != twin["params"] or d > 1e-5:
+        fail(f"{label}: the train_2v2 checkpoint's InferUnit "
+             f"({unit2.learner.param_counts()['total']} params) differs from "
+             f"the trainer's forward by {d:.3g} (tol 1e-5)")
+    n_flip = flips_allowed(f"{label} train_2v2", unit2.infer_actions(
+        twin["obs"], twin["masks"]), torch.where(
+        twin["masks"], twin["logits"], -torch.inf).argmax(-1),
+        twin["logits"], twin["masks"])
+    print(f"[{label}] train_2v2 checkpoint {os.path.relpath(ck, ROOT)} into "
+          f"InferUnit on the card in {load_s:.3f} s "
+          f"({twin['params']} params, {twin['ppo'].activation}): logits on "
+          f"{len(twin['obs'])} obs rows of a collection vs the trainer's own "
+          f"fp32 forward, max |diff| {d:.3g} (tol 1e-5); deterministic "
+          f"actions differing from its masked argmax {n_flip}")
+
+    # the bench-shape ReLU model: C++ on the host, InferUnit on the card,
+    # torch on the CPU
+    learner = bench["learner"]
+    obs, masks = bench["obs"], bench["masks"]
+    t = time.perf_counter()
+    blob = native.export_policy_blob(learner)
+    pol = native.NativePolicy(blob)
+    build_s = time.perf_counter() - t
+    unit = InferUnit.from_params(learner.params_to_jax(), 2,
+                                 bench_ppo_config())
+    cpu = InferUnit.from_params(learner.params_to_jax(), 2,
+                                bench_ppo_config(), device="cpu")
+    obs_np, masks_np = obs.cpu().numpy(), masks.cpu().numpy()
+    lg_host = torch.from_numpy(pol.logits(obs_np))
+    lg_card = unit.logits(obs).cpu()
+    lg_cpu = cpu.logits(obs.cpu())
+    devs = {}
+    for name, a, b in (("C++ vs card", lg_host, lg_card),
+                       ("C++ vs torch CPU", lg_host, lg_cpu),
+                       ("card vs torch CPU", lg_card, lg_cpu)):
+        excess = ((a - b).abs() - LOGIT_RTOL * b.abs()).amax()
+        devs[name] = float((a - b).abs().max())
+        if float(excess) > LOGIT_ATOL:
+            fail(f"{label}: logits {name} beyond rtol {LOGIT_RTOL} atol "
+                 f"{LOGIT_ATOL} (max |diff| {devs[name]:.3g})")
+    a_host = torch.from_numpy(pol.infer(obs_np, masks_np).astype(np.int64))
+    a_card = unit.infer_actions(obs, masks).cpu()
+    n_flip = flips_allowed(f"{label} bench", a_host, a_card, lg_card,
+                           masks.cpu())
+    print(f"[{label}] bench-shape ReLU model from [train] "
+          f"({learner.param_counts()['total']} params): blob {len(blob)} "
+          f"bytes, export and C++ build/load {build_s:.2f} s; logits on "
+          f"{len(obs)} obs rows, max |diff| " + json.dumps(
+              {k: float(f"{v:.3g}") for k, v in devs.items()})
+          + f" (rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}); deterministic "
+          f"actions C++ vs card differing {n_flip} of {len(obs)} (each "
+          f"within the margin tolerance)")
+
+    # decision latency: InferUnit on the card, the C++ runtime on the host
+    lat = {}
+    for b in (1, 4):
+        o, mk = obs[:b], masks[:b]
+        lat[f"InferUnit card b{b}"] = host_ms(
+            lambda: unit.infer_actions(o, mk).tolist(), 200)
+        lat[f"InferUnit card 768-wide leaky b{b}"] = host_ms(
+            lambda: unit2.infer_actions(o, mk).tolist(), 200)
+        oh, mh = obs_np[:b], masks_np[:b]
+        lat[f"C++ host b{b}"] = host_ms(lambda: pol.infer(oh, mh), 200)
+
+    # a scripted 2v2 session: the server, the adapter on the same runtime,
+    # the adapter on the card's InferUnit
+    packets = scripted_2v2(600)
+    blob_path = os.path.join(folder, "policy.blob")
+    with open(blob_path, "wb") as f:
+        f.write(blob)
+    bots = ((0, 0), (0, 1), (1, 2), (1, 3))
+    t = time.perf_counter()
+    with bot_bridge.BotServer(blob_path, tick_skip=8, action_delay=7,
+                              workdir=folder) as server:
+        for team, index in bots:
+            bot_bridge.add_bot(server.port, f"bot{index}", team, index)
+        client = bot_bridge.PacketClient(server.port)
+        try:
+            served = [client.send_packet(**p) for p in packets]
+        finally:
+            client.close()
+    server_s = time.perf_counter() - t
+    server_ctl = np.stack([[out[i] for _, i in bots] for out in served])
+
+    # the game machine builds the obs on the host; the policy runs in the
+    # C++ runtime there or in InferUnit on the card
+    host_obs = AdvancedObs(4, unit.obs_builder.teams_np, device="cpu")
+    host_parser = DefaultAction(device="cpu")
+
+    def session(make_infer):
+        adapters = [RLBotAdapter(make_infer(i), host_obs, host_parser,
+                                 tick_skip=8, action_delay=7)
+                    for _, i in bots]
+        ctl = []
+        for p in packets:
+            players = packet_players(p)
+            ctl.append([a.get_output(p["seconds_elapsed"], p["ball_pos"],
+                                     p["ball_vel"], p["ball_ang_vel"],
+                                     players, p["pads_active"], i)
+                        for a, (_, i) in zip(adapters, bots)])
+        return np.stack(ctl).astype(np.float32)
+
+    def native_infer(i):
+        return lambda o, m: int(pol.infer(o[None].numpy(),
+                                          m[None].numpy())[0])
+    host_ctl = session(native_infer)
+    if not np.array_equal(host_ctl, server_ctl):
+        tick = int(np.nonzero(np.any(host_ctl != server_ctl, (1, 2)))[0][0])
+        fail(f"{label}: RLBotAdapter on the C++ runtime and the bot server "
+             f"differ first at tick {tick}")
+    decisions = {"n": 0, "flips": []}
+
+    def card_infer(i):
+        def infer(o, m):
+            a = int(unit.infer_actions(o[None], m[None])[0])
+            b = int(pol.infer(o[None].numpy(), m[None].numpy())[0])
+            if a != b:
+                flips_allowed(f"{label} session", torch.tensor([a]),
+                              torch.tensor([b]), unit.logits(o[None]).cpu(),
+                              m[None])
+                decisions["flips"].append((i, decisions["n"]))
+            decisions["n"] += 1
+            return a
+        return infer
+    t = time.perf_counter()
+    card_ctl = session(card_infer)
+    card_s = time.perf_counter() - t
+    if not decisions["flips"] and not np.array_equal(card_ctl, server_ctl):
+        fail(f"{label}: RLBotAdapter on the card's InferUnit and the bot "
+             "server differ with no decision within the margin")
+    changes = int(np.any(np.diff(server_ctl, axis=0) != 0, -1).sum())
+    distinct = len({tuple(r) for r in server_ctl.reshape(-1, 8).tolist()})
+    card_vs_server = ("equal at every tick"
+                      if np.array_equal(card_ctl, server_ctl) else
+                      "differing after a decision within the margin")
+    print(f"[{label}] scripted 2v2 session, {len(packets)} ticks, tick_skip "
+          f"8, action_delay 7, 4 bots, the [train] model: bot server "
+          f"{server_s:.2f} s; RLBotAdapter (obs on the host) on the C++ "
+          f"runtime equal to the server at every tick; on the card's "
+          f"InferUnit {card_vs_server}"
+          f" ({decisions['n']} decisions, {len(decisions['flips'])} within "
+          f"the margin, {card_s:.2f} s); controls changed {changes} times "
+          f"over the 4 bots, {distinct} distinct control rows")
+
+    # one get_output call that infers, on the card
+    adapter = RLBotAdapter.from_infer_unit(unit, 0)
+    p0 = packets[0]
+    players0 = packet_players(p0)
+
+    def one_decision():
+        adapter.update_action = True
+        adapter.get_output(p0["seconds_elapsed"], p0["ball_pos"],
+                           p0["ball_vel"], p0["ball_ang_vel"], players0,
+                           p0["pads_active"], 0)
+    lat["RLBotAdapter.get_output card (infers)"] = host_ms(one_decision, 100)
+
+    # the converter: checkpoint -> .pt -> .npz -> InferUnit, and .lt
+    t = time.perf_counter()
+    cv.export_to_torch(ck, os.path.join(folder, "pt"))
+    cv.import_from_torch(os.path.join(folder, "pt"),
+                         os.path.join(folder, "p.npz"))
+    via_pt = InferUnit.from_npz(os.path.join(folder, "p.npz"), 2,
+                                twin["ppo"]).logits(twin["obs"])
+    cv.export_to_lt(ck, os.path.join(folder, "lt"), twin["ppo"].activation)
+    cv.import_from_lt(os.path.join(folder, "lt"),
+                      os.path.join(folder, "lt.npz"))
+    via_lt = InferUnit.from_npz(os.path.join(folder, "lt.npz"), 2,
+                                twin["ppo"]).logits(twin["obs"])
+    conv_s = time.perf_counter() - t
+    if not (torch.equal(via_pt, got) and torch.equal(via_lt, got)):
+        fail(f"{label}: the converter's round trips changed the logits")
+    print(f"[{label}] converter: checkpoint -> .pt -> .npz -> InferUnit "
+          f"and checkpoint -> .lt -> .npz -> InferUnit, logits bit-equal to "
+          f"the checkpoint's on {len(twin['obs'])} rows ({conv_s:.2f} s)")
+    print(f"[{label}] decision latency, ms (mean, max; host clock, the "
+          f"result on the host; budget {DECISION_MS:.1f} ms per decision at "
+          f"tick_skip 8): " + json.dumps(
+              {k: [round(v[0], 4), round(v[1], 4)] for k, v in lat.items()})
+          + f"; card {card}")
+
+
+# the card against the CPU for the geometry queries: float32 on both, the
+# reductions and products rounding apart in the last bits.  At arena scale
+# (coordinates up to 8192 uu, where float32's spacing is 4.9e-4 uu) a
+# contact point comes out of a chain of about 8 such roundings, so lengths
+# agree to 8 spacings; in bt units (1/50) the box-box chain to 1e-4.  A
+# flag may differ in at most THRESHOLD_SHARE of the rows, and only where
+# its deciding length is within GEOM_ATOL of the threshold.
+GEOM_ATOL = 4e-3     # uu
+BB_ATOL = 1e-4       # bt (5e-3 uu), box-box points and depths
+
+
+def close_where(label, what, got, want, atol, rows=None):
+    """max |got - want| over ``rows`` (all by default); fails beyond
+    ``atol``."""
+    d = (got.cpu() - want).abs()
+    if rows is not None:
+        d = d[rows]
+    d = float(d.max()) if d.numel() else 0.0
+    if d > atol:
+        fail(f"{label}: {what} card vs CPU differ by {d:.3g} (tol {atol})")
+    return d
+
+
+def flags_agree(label, what, got, want, margin=None):
+    """Flags equal in all but THRESHOLD_SHARE of the rows (a row: the
+    leading index), and, given ``margin``, only where |margin| <=
+    GEOM_ATOL.  Returns the flags both set and the count of differing
+    entries."""
+    import torch
+    got = got.cpu()
+    differ = got != want
+    bad = (differ & (margin.cpu().abs() > GEOM_ATOL) if margin is not None
+           else torch.zeros_like(differ))
+    rows = differ.reshape(len(differ), -1).any(-1)
+    if bool(bad.any()) or int(rows.sum()) > THRESHOLD_SHARE * len(rows) + 1:
+        fail(f"{label}: {what} flags differ card vs CPU in "
+             f"{int(rows.sum())} rows, {int(bad.sum())} beyond the margin")
+    return got & want, int(differ.sum())
+
+
+def geometry_path(card, gen, positions):
+    """[geometry]: the procedural soccar and hoops MeshGrids baked onto the
+    card through ``world.get_grid``; ``sphere_contacts`` for 1,024 balls,
+    ``raycast`` for 1,024 x 4 x 4 wheel rays and ``box_contacts`` for 4,096
+    car hitboxes, drawn from every state [full]'s warm-up collection
+    stepped from; ``box_box_manifold`` on 4,096 overlapping car pairs; each
+    on the card against the CPU, and timed at that batch."""
+    import numpy as np
+    import torch
+    from reinforcement_learning_torch import constants as C
+    from reinforcement_learning_torch import maths as m
+    from reinforcement_learning_torch.physics import box_box, world
+    from reinforcement_learning_torch.physics.formulas import \
+        box_effective_half_extents_bt
+    from reinforcement_learning_torch.physics.state import CarConfig
+    label = "geometry"
+    dev = torch.device("cuda")
+    grids = {}
+    for mode in ("soccar", "hoops"):
+        world.init()
+        t = time.perf_counter()
+        grid = world.get_grid(mode)
+        torch.cuda.synchronize()
+        bake_s = time.perf_counter() - t
+        if (grid.tri_a.device.type != "cuda"
+                or world.get_grid(mode) is not grid):
+            fail(f"{label}: get_grid({mode!r}) is not on the card or not "
+                 "kept")
+        grids[mode] = (grid, grid.to("cpu"))
+        print(f"[{label}] {mode} MeshGrid baked and moved to the card in "
+              f"{bake_s:.2f} s: {grid.tri_a.shape[0]} triangles, cells "
+              f"{list(grid.cells.shape)}")
+
+    ball_pos, car_pos, car_rot = positions
+    pick = torch.Generator(device=dev).manual_seed(SEED)
+    balls = ball_pos[torch.randperm(len(ball_pos), generator=pick,
+                                    device=dev)[:E]]
+    ci = torch.randperm(len(car_pos) * CARS, generator=pick,
+                        device=dev)[:E * CARS]
+    cpos = car_pos.reshape(-1, 3)[ci]
+    crot = car_rot.reshape(-1, 3, 3)[ci]
+    cfg = CarConfig()
+    he = torch.tensor(cfg.hitbox_size, device=dev) / 2
+    hit_c = cpos + m.rotate(crot, torch.tensor(cfg.hitbox_offset,
+                                               device=dev))
+    starts = cpos[:, None] + torch.einsum(
+        'nij,wj->nwi', crot, torch.tensor(cfg.wheel_offsets(), device=dev))
+    dirs = -crot[:, None, :, 2].expand_as(starts)
+    # the wheel ray's length as the portable engine casts it (JAX
+    # physics/car.py:152-157): rest + travel + radius - the subtraction
+    ray_len = torch.tensor(
+        cfg.sus_rest_lengths() + cfg.wheel_radii()
+        + C.BTVehicle.MAX_SUSPENSION_TRAVEL
+        - C.BTVehicle.SUSPENSION_SUBTRACTION * C.BT_TO_UU, device=dev)
+    ray_len = ray_len.expand(starts.shape[:-1])
+    print(f"[{label}] queries from {len(ball_pos)} ball and "
+          f"{len(car_pos) * CARS} car positions of the states [full]'s "
+          f"warm-up collection stepped from: ball z "
+          f"{float(balls[:, 2].min()):.1f}..{float(balls[:, 2].max()):.1f}, "
+          f"car z {float(cpos[:, 2].min()):.1f}.."
+          f"{float(cpos[:, 2].max()):.1f}")
+
+    grid, cpu = grids["soccar"]
+    r = C.BALL_COLLISION_RADIUS_SOCCAR
+    out = {}
+
+    # every candidate's depth, point and normal is compared, live or not
+    n, d, a = grid.sphere_contacts(balls, r)
+    nc, dc, ac = cpu.sphere_contacts(balls.cpu(), r)
+    both, nflip = flags_agree(label, "sphere", a, ac, d)
+    out["sphere_contacts"] = dict(
+        batch=f"{len(balls)} balls x {d.shape[-1]} candidates",
+        live=int(both.sum()), flags_differing=nflip,
+        depth=close_where(label, "sphere depth", d, dc, GEOM_ATOL),
+        normal_x_dist=close_where(label, "sphere normal x distance",
+                                  n * (r - d)[..., None],
+                                  nc * (r - dc)[..., None], GEOM_ATOL),
+        ms=cuda_ms(lambda: grid.sphere_contacts(balls, r), 20))
+
+    # every candidate, and the 12 the portable engine keeps by AABB
+    # overlap (JAX contacts.py MESH_COMPACT_K_RAY, car.py:166-169)
+    for name, kc in (("raycast", None), ("raycast k_compact=12", 12)):
+        hit, rd, rn = grid.raycast(starts, dirs, ray_len, k_compact=kc)
+        hc, rdc, rnc = cpu.raycast(starts.cpu(), dirs.cpu(), ray_len.cpu(),
+                                   k_compact=kc)
+        both, nflip = flags_agree(label, name, hit, hc,
+                                  rdc - ray_len.cpu())
+        out[name] = dict(
+            batch=f"{hit.numel()} wheel rays", hits=int(both.sum()),
+            flags_differing=nflip,
+            dist=close_where(label, f"{name} distance", rd, rdc, GEOM_ATOL),
+            normal=close_where(label, f"{name} normal", rn, rnc, GEOM_ATOL,
+                               both),
+            ms=cuda_ms(lambda: grid.raycast(starts, dirs, ray_len,
+                                            k_compact=kc), 20))
+
+    hev = he.expand(hit_c.shape)
+    bn, bp, bd, ba = grid.box_contacts(hit_c, crot, hev)
+    bnc, bpc, bdc, bac = cpu.box_contacts(hit_c.cpu(), crot.cpu(),
+                                          hev.cpu())
+    # a box contact is live where it is deep enough and its support point
+    # projects into the triangle: no one length decides it
+    both, nflip = flags_agree(label, "box", ba, bac)
+    out["box_contacts"] = dict(
+        batch=f"{len(hit_c)} car hitboxes x {bd.shape[-1]} candidates",
+        live=int(both.sum()), flags_differing=nflip,
+        depth=close_where(label, "box depth", bd, bdc, GEOM_ATOL),
+        point=close_where(label, "box point", bp, bpc, GEOM_ATOL),
+        normal=close_where(label, "box normal", bn, bnc, 1e-5),
+        ms=cuda_ms(lambda: grid.box_contacts(hit_c, crot, hev), 20))
+
+    # 4,096 car pairs set to overlap, in bt units as the tick runs them
+    he_bt = torch.tensor(box_effective_half_extents_bt(cfg.hitbox_size),
+                         dtype=torch.float32, device=dev)
+    p1 = hit_c / C.BT_TO_UU
+    off = (torch.rand(len(p1), 3, generator=gen, device=dev) * 2 - 1) \
+        * 1.8 * he_bt
+    p2 = p1 + m.rotate(crot, off)
+    q, rr = torch.linalg.qr(torch.randn(len(p1), 3, 3, generator=gen,
+                                        device=dev))
+    q = q * torch.sign(torch.diagonal(rr, dim1=-2, dim2=-1))[:, None, :]
+    q[torch.linalg.det(q) < 0, :, 0] *= -1
+    R2 = q
+    args = (p1, crot, he_bt, p2, R2, he_bt)
+    mf = box_box.box_box_manifold(*args)
+    mfc = box_box.box_box_manifold(*(x.cpu() for x in args))
+    same = (mf["code"].cpu() == mfc["code"]) & (
+        mf["active"].cpu() == mfc["active"]).all(-1)
+    if int((~same).sum()) > THRESHOLD_SHARE * len(same) + 1:
+        fail(f"{label}: box_box_manifold codes or slots differ card vs CPU "
+             f"in {int((~same).sum())} of {len(same)} pairs")
+    act = mf["active"].cpu() & same[:, None]
+    out["box_box_manifold"] = dict(
+        batch=f"{len(p1)} car pairs (bt units)",
+        overlapping=int(mf["overlap"].sum()),
+        edge_codes=int((mf["code"] > 6).sum()),
+        pairs_differing=int((~same).sum()),
+        depth=close_where(label, "box-box depth", mf["depth"], mfc["depth"],
+                          BB_ATOL, act),
+        point=close_where(label, "box-box point", mf["points"],
+                          mfc["points"], BB_ATOL, act),
+        normal=close_where(label, "box-box normal", mf["normal"],
+                           mfc["normal"], BB_ATOL, same),
+        ms=cuda_ms(lambda: box_box.box_box_manifold(*args), 20))
+    if out["box_box_manifold"]["overlapping"] < len(p1) // 2:
+        fail(f"{label}: only {out['box_box_manifold']['overlapping']} of "
+             f"{len(p1)} car pairs overlap")
+
+    hgrid, hcpu = grids["hoops"]
+    hb = balls * torch.tensor([C.ARENA_EXTENT_X_HOOPS / C.ARENA_EXTENT_X,
+                               C.ARENA_EXTENT_Y_HOOPS / C.ARENA_EXTENT_Y,
+                               1.0], device=dev)
+    hr = C.BALL_COLLISION_RADIUS_HOOPS
+    n, d, a = hgrid.sphere_contacts(hb, hr)
+    nc, dc, ac = hcpu.sphere_contacts(hb.cpu(), hr)
+    both, nflip = flags_agree(label, "hoops sphere", a, ac, d)
+    out["hoops sphere_contacts"] = dict(
+        batch=f"{len(hb)} balls scaled into the hoops arena",
+        live=int(both.sum()), flags_differing=nflip,
+        depth=close_where(label, "hoops sphere depth", d, dc, GEOM_ATOL),
+        ms=cuda_ms(lambda: hgrid.sphere_contacts(hb, hr), 20))
+    for name, v in out.items():
+        print(f"[{label}] {name}: " + json.dumps(
+            {k: (float(f"{x:.4g}") if isinstance(x, float) else x)
+             for k, x in v.items()}))
+    print(f"[{label}] tolerances card vs CPU: lengths {GEOM_ATOL} uu over "
+          f"every candidate (live or not), box-box {BB_ATOL} bt, flags only "
+          f"where within the length tolerance of the threshold; times are "
+          f"CUDA-event means of 20 calls; card {card}")
 
 
 def main():
@@ -1795,12 +2370,14 @@ def main():
     # 5. the collection paths --------------------------------------------
     entries = {}
     for label, env, params in (("plane", penv, plane), ("full", fenv, full)):
-        entries[label] = drive_path(label, env, params, card, gen, T)
+        entries[label] = drive_path(label, env, params, card, gen, T,
+                                    record=label == "full")
         err[label] = max(err[label], entries[label].pop("end_err"))
+    positions = entries["full"].pop("positions")
     del penv, fenv
 
     # 6. the main path: train_iteration at bench shape --------------------
-    entries["full"]["launches"] = train_path(card, gen)
+    entries["full"]["launches"], bench = train_path(card, gen)
 
     # 7. one train_iteration in each game mode ---------------------------
     for mode in ("heatseeker", "snowday"):
@@ -1808,9 +2385,21 @@ def main():
         err[mode] = max(err[mode], entries[mode].pop("end_err"))
 
     # 8. the canonical training program: train_2v2 and train_1v1 twins ---
-    entries["train_2v2"] = twin_path(card, gen)
+    entries["train_2v2"], twin = twin_path(card, gen)
 
-    # 9. small collection on the card vs the plain path on the CPU -------
+    # 9. deployment: InferUnit, the C++ runtime, the bot server, the
+    # converter ------------------------------------------------------------
+    t0 = time.perf_counter()
+    deploy_path(card, bench, twin)
+    print(f"[deploy] phase {time.perf_counter() - t0:.1f} s")
+    del bench, twin
+
+    # 10. the arena geometry: mesh grids, queries, box-box ----------------
+    t0 = time.perf_counter()
+    geometry_path(card, gen, positions)
+    print(f"[geometry] phase {time.perf_counter() - t0:.1f} s")
+
+    # 11. small collection on the card vs the plain path on the CPU ------
     small_collect_agrees(dev, full)
 
     kernels = []

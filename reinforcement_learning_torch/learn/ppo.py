@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -175,6 +176,11 @@ class PPOLearner(nn.Module):
         self.policy.load_jax(tree["policy"])
         self.critic.load_jax(tree["critic"])
         return self
+
+    def params_to_jax(self) -> dict:
+        """The inverse of ``params_from_jax``: this learner's parameters as
+        the JAX package's ``PPOParams`` tree of float32 numpy arrays."""
+        return params_tree(self.state_dict())
 
     # --- inference --------------------------------------------------------
 
@@ -385,3 +391,35 @@ class PPOLearner(nn.Module):
                         k: sums[k] + v for k, v in aux.items()}
         n = cfg.epochs * num_batches
         return {k: v / n for k, v in sums.items()}
+
+
+def _mlp_tree(sd: dict, prefix: str) -> dict:
+    def a(key):
+        return sd[prefix + key].detach().cpu().numpy().astype(np.float32)
+    layers = []
+    while f"{prefix}layers.{len(layers)}.weight" in sd:
+        i = len(layers)
+        layer = {"w": np.ascontiguousarray(a(f"layers.{i}.weight").T),
+                 "b": a(f"layers.{i}.bias")}
+        if f"{prefix}norms.{i}.weight" in sd:
+            layer["ln_scale"] = a(f"norms.{i}.weight")
+            layer["ln_bias"] = a(f"norms.{i}.bias")
+        layers.append(layer)
+    tree = {"layers": layers}
+    if prefix + "out.weight" in sd:
+        tree["out"] = {"w": np.ascontiguousarray(a("out.weight").T),
+                       "b": a("out.bias")}
+    return tree
+
+
+def params_tree(state_dict: dict) -> dict:
+    """A ``PPOLearner`` state dict (``learner.state_dict()``, or a
+    checkpoint's ``"learner"``) as the JAX package's ``PPOParams`` tree:
+    ``{"shared_head": mlp tree or None, "policy": ..., "critic": ...}``,
+    each mlp tree ``{"layers": [{"w", "b", "ln_scale", "ln_bias"}], "out":
+    {"w", "b"}}`` of float32 numpy arrays, ``w`` as (fan_in, fan_out)."""
+    has_shared = any(k.startswith("shared_head.") for k in state_dict)
+    return {"shared_head": (_mlp_tree(state_dict, "shared_head.")
+                            if has_shared else None),
+            "policy": _mlp_tree(state_dict, "policy."),
+            "critic": _mlp_tree(state_dict, "critic.")}

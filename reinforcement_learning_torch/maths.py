@@ -8,6 +8,7 @@ rotation matrices have the body's forward / right / up axes as COLUMNS
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -42,3 +43,108 @@ def euler_to_rotmat(yaw, pitch=None, roll=None):
         [-sp, cp * sr, cp * cr],
     ]
     return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def cross(a, b):
+    return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+
+
+def clamp_norm(v, max_norm, dim=-1):
+    """Scale v down so its norm is at most max_norm: renormalise only when
+    exceeded (Car.cpp:177-190)."""
+    n = norm(v, dim=dim, keepdim=True)
+    scale = torch.where(n > max_norm, max_norm / torch.clamp(n, min=1e-12),
+                        torch.ones_like(n))
+    return v * scale
+
+
+def rotmat_forward(R):
+    return R[..., :, 0]
+
+
+def rotmat_right(R):
+    return R[..., :, 1]
+
+
+def rotmat_up(R):
+    return R[..., :, 2]
+
+
+def rotmat_to_euler(R):
+    """Rotation matrix -> (yaw, pitch, roll), the inverse of
+    ``euler_to_rotmat`` (MathTypes.cpp:62-71): R[2, 0] = sin(pitch)."""
+    pitch = torch.asin(torch.clamp(R[..., 2, 0], -1.0, 1.0))
+    yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
+    roll = -torch.atan2(R[..., 2, 1], R[..., 2, 2])
+    return yaw, pitch, roll
+
+
+def rotate(R, v):
+    """Local vector(s) into the world frame: R @ v."""
+    return torch.einsum('...ij,...j->...i', R, v)
+
+
+def inv_rotate(R, v):
+    """World vector(s) into the body frame: R^T @ v."""
+    return torch.einsum('...ji,...j->...i', R, v)
+
+
+def curve(curve_table, x):
+    """A LinearPieceCurve (Math.h): piecewise linear, clamped at both ends,
+    with ``numpy.interp``'s arithmetic."""
+    xs, ys = (torch.as_tensor(np.asarray(t), dtype=x.dtype, device=x.device)
+              for t in curve_table)
+    i = torch.clamp(torch.searchsorted(xs, x.contiguous(), right=True), 1,
+                    len(xs) - 1)
+    x0, x1, y0, y1 = xs[i - 1], xs[i], ys[i - 1], ys[i]
+    dx = x1 - x0
+    flat = torch.abs(dx) <= np.spacing(np.finfo(np.float32).eps)
+    f = torch.where(flat, y0, y0 + ((x - x0) / torch.where(flat, 1.0, dx))
+                    * (y1 - y0))
+    f = torch.where(x < xs[0], ys[0], f)
+    return torch.where(x > xs[-1], ys[-1], f)
+
+
+def orthonormalize(R):
+    """Gram-Schmidt on the forward/right/up columns."""
+    f = normalize(R[..., :, 0])
+    r = R[..., :, 1]
+    r = normalize(r - f * dot(f, r, keepdim=True))
+    return torch.stack([f, r, cross(f, r)], dim=-1)
+
+
+def integrate_rotation(R, ang_vel, dt):
+    """Orientation advanced by ``ang_vel`` over ``dt`` with the exponential
+    map (Rodrigues), then re-orthonormalised."""
+    theta = norm(ang_vel, keepdim=True)
+    axis = torch.where(theta > 1e-12, ang_vel / torch.clamp(theta, min=1e-12),
+                       torch.zeros_like(ang_vel))
+    angle = (theta * dt)[..., 0]
+    c, s = torch.cos(angle), torch.sin(angle)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    k = 1.0 - c
+    rot = torch.stack([
+        torch.stack([c + x * x * k, x * y * k - z * s, x * z * k + y * s],
+                    dim=-1),
+        torch.stack([y * x * k + z * s, c + y * y * k, y * z * k - x * s],
+                    dim=-1),
+        torch.stack([z * x * k - y * s, z * y * k + x * s, c + z * z * k],
+                    dim=-1),
+    ], dim=-2)
+    return orthonormalize(torch.einsum('...ij,...jk->...ik', rot, R))
+
+
+def take_along_axis(arr, idx, dim):
+    """``numpy.take_along_axis`` with ``idx`` broadcast against ``arr`` on
+    every axis but ``dim``, and indices out of range clamped into it as
+    XLA's gather does."""
+    dim = dim % arr.dim()
+    shape = list(torch.broadcast_shapes(arr.shape[:dim] + (1,)
+                                        + arr.shape[dim + 1:],
+                                        idx.shape[:dim] + (1,)
+                                        + idx.shape[dim + 1:]))
+    shape[dim] = idx.shape[dim]
+    ashape = list(shape)
+    ashape[dim] = arr.shape[dim]
+    idx = torch.clamp(idx.long(), 0, arr.shape[dim] - 1)
+    return torch.gather(arr.expand(ashape), dim, idx.expand(shape))

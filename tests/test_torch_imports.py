@@ -40,9 +40,17 @@ def test_the_port_has_its_modules():
                 "envs/kickoff_reward", "envs/terminals",
                 "envs/state_setters", "utils/checkpoint", "utils/metrics",
                 "utils/report", "utils/render", "utils/keypress",
-                "examples/train_2v2", "examples/train_1v1"):
+                "examples/train_2v2", "examples/train_1v1",
+                "deploy/native", "deploy/infer", "deploy/bot_bridge",
+                "deploy/rlbot_agent", "deploy/rlbot_packet_agent",
+                "tools/checkpoint_converter", "physics/box_tri",
+                "physics/box_box", "physics/mesh", "physics/arena_geom",
+                "physics/world"):
         assert f"reinforcement_learning_torch/{mod}.py" in names, mod
     assert (ROOT / "reinforcement_learning_torch/csrc/arena_step.cu").exists()
+    for src in ("mlp_infer.cpp", "bot_server.cpp"):
+        assert (ROOT / "reinforcement_learning_torch/deploy/native"
+                / src).exists(), src
 
 
 @pytest.mark.parametrize("path", FILES,
