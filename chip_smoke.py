@@ -88,7 +88,25 @@ Phases, each of which must pass (nothing is caught):
    states step 5's full-fidelity warm-up collection stepped from, and
    ``box_box_manifold`` on 4,096 overlapping car pairs, each on the card
    against the CPU and timed;
-11. the full-fidelity collection at 8 arenas on the card against the plain
+11. [portable], the portable physics engine (physics/step.py, car.py,
+   contacts.py; no kernel): ``RocketLeagueEnv`` 1024 x 2v2 soccar with
+   ``physics_backend="portable"`` steps once from the state step 5's
+   full-fidelity collection ends in, with no kernel launch, timed; its
+   ``arena_step`` on the card is held against the same code on the CPU
+   (the same controls and per-tick respawn draws; ``compare``'s
+   tolerances, at most 2% of arenas with a differing flag or a float
+   beyond them); the tensor ops of a tick and of an env step;
+12. [hoops]: one ``Trainer.train_iteration`` of 1024 x 2v2 hoops at the
+   bench widths through ``physics_backend="auto"`` (the portable route;
+   the kernel's launch count set to 0 before and read after must stay 0),
+   split into collect, values + GAE + Welford and update, with its
+   player-steps/s, goals and kickoffs, and the ms and tensor ops of an env
+   step;
+13. [ball_pred]: ``BallPredTracker(120)`` in hoops over the 1024 balls of
+   step 12's end state (in flight after the hoops kickoff throws them
+   up) on the card against the CPU (every entry to the tolerances above,
+   at most 2% of balls off), and the time of an update;
+14. the full-fidelity collection at 8 arenas on the card against the plain
    path on the CPU, deterministic actions, fp32.
 
 Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` and allows
@@ -143,11 +161,15 @@ EVENT_TIMERS = ("arena.cars.car_contact_cooldown",
                 "arena.cars.demo_respawn_timer")
 
 
-def compare(name, got, want, allowed_arenas):
+def compare(name, got, want, allowed_arenas, sides=("kernel", "plain"),
+            floats_count=False):
     """Hold kernel output ``got`` to the plain version's ``want`` field by
-    field.  Arenas where an integer or boolean field, or an event timer,
-    differs are listed; at most ``allowed_arenas`` may, and their floats
-    are not compared.  Returns the worst float deviation."""
+    field (``sides`` names the two in the messages).  Arenas where an
+    integer or boolean field, or an event timer, differs are listed; at
+    most ``allowed_arenas`` may, and their floats are not compared.  With
+    ``floats_count``, an arena with a float beyond its tolerance is listed
+    and counted with them instead of failing the check.  Returns the worst
+    float deviation over the arenas that agree."""
     import torch
     from reinforcement_learning_torch.ops.ctick import (DEFAULT_TOLERANCE,
                                                         TOLERANCES)
@@ -163,15 +185,29 @@ def compare(name, got, want, allowed_arenas):
             d = ((g[k] - a).abs() > atol + rtol * a.abs()).reshape(n, -1)
             d = d.any(-1)
             for e in d.nonzero()[:, 0].tolist()[:4]:
-                print(f"[{name}] arena {e}: {k} kernel {g[k][e].tolist()} "
-                      f"plain {a[e].tolist()}")
+                print(f"[{name}] arena {e}: {k} {sides[0]} "
+                      f"{g[k][e].tolist()} {sides[1]} {a[e].tolist()}")
         else:
             d = (g[k] != a).reshape(n, -1).any(-1)
         if d.any():
             flips[k] = d.nonzero()[:, 0].tolist()
         bad |= d
+    if floats_count:
+        for k, a in w.items():
+            if not a.dtype.is_floating_point or k in EVENT_TIMERS:
+                continue
+            atol, rtol = TOLERANCES.get(k, DEFAULT_TOLERANCE)
+            d = (((g[k] - a).abs() > atol + rtol * a.abs())
+                 | ~torch.isfinite(g[k])).reshape(n, -1).any(-1)
+            if d.any():
+                flips[k] = d.nonzero()[:, 0].tolist()
+                e = flips[k][0]
+                print(f"[{name}] arena {e}: {k} {sides[0]} "
+                      f"{g[k][e].tolist()} {sides[1]} {a[e].tolist()}")
+            bad |= d
     n_bad = int(bad.sum())
-    print(f"[{name}] arenas with a differing boolean/int/event timer: "
+    print(f"[{name}] arenas with a differing boolean/int/event timer"
+          f"{' or a float beyond tolerance' if floats_count else ''}: "
           f"{n_bad} {json.dumps(flips)}")
     if n_bad > allowed_arenas:
         fail(f"{name}: {n_bad} arenas differ in a boolean (allowed "
@@ -191,9 +227,9 @@ def compare(name, got, want, allowed_arenas):
             at = int((dev - lim).reshape(dev.shape[0], -1).amax(-1).argmax())
             e = int(ok.nonzero()[at, 0])
             fail(f"{name}: {k} off by {worst[k]:.3g} (atol {atol}, rtol "
-                 f"{rtol}); arena {e}: kernel {b[e].tolist()} plain "
-                 f"{a[e].tolist()}")
-    print(f"[{name}] worst |kernel - plain| per field: "
+                 f"{rtol}); arena {e}: {sides[0]} {b[e].tolist()} "
+                 f"{sides[1]} {a[e].tolist()}")
+    print(f"[{name}] worst |{sides[0]} - {sides[1]}| per field: "
           + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
     return err
 
@@ -835,7 +871,8 @@ def drive_path(label, env, params, card, gen, T_steps, record=False):
     before and read just after; check the trajectory; then ``end_state``
     on the state it ends in.  Returns the path's ``kernels`` entry; with
     ``record``, also the ball and car positions and rotations of every
-    state the warm-up collection stepped from (``"positions"``)."""
+    state the warm-up collection stepped from (``"positions"``) and the
+    env state the timed collection ends in (``"played"``)."""
     import torch
     from reinforcement_learning_torch.learn.trainer import (Trainer,
                                                             TrainerConfig)
@@ -881,6 +918,7 @@ def drive_path(label, env, params, card, gen, T_steps, record=False):
                          card, gen)}
     if record:
         entry["positions"] = [torch.cat(x) for x in zip(*seen)]
+        entry["played"] = tstate.env_states
     return entry
 
 
@@ -1103,6 +1141,195 @@ def mode_path(label, mode, card, gen):
     return {"launches": launches,
             **end_state(label, trainer, state, actions.reshape(E, CARS),
                         trainer.env.params, card, gen)}
+
+
+# ---------------------------------------------------------------------------
+# the portable physics engine: soccar, hoops, ball prediction
+
+PORTABLE_SHARE = 0.02   # arenas or balls allowed off, card vs CPU
+
+
+def _ops_per_step(env, state, actions, r):
+    """(tensor ops of one portable tick, of one env.step) dispatched."""
+    from reinforcement_learning_torch.ops import opcount
+    from reinforcement_learning_torch.physics import step as stepmod
+    tick = opcount.count_ops(lambda: stepmod.arena_tick(
+        state.phys, env.teams_np, r[:, 0], env.params))[1]
+    step = opcount.count_ops(lambda: env.step(state, actions))[1]
+    return tick, step
+
+
+def portable_path(card, gen, played):
+    """[portable]: RocketLeagueEnv 1024 x 2v2 soccar with
+    physics_backend="portable" from the full-fidelity collection's played
+    state: env.step on the card (the kernel's launch count set to 0 before
+    and read after: no launch), timed; then the portable ``arena_step`` on
+    the card against the same code on the CPU with the same controls and
+    per-tick respawn draws, ``compare``'s tolerances, an arena allowed a
+    differing flag or a float beyond tolerance in PORTABLE_SHARE of the
+    arenas (8 ticks of contacts round differently on the card's libm).
+    Returns the worst float deviation over the others."""
+    import torch
+    from reinforcement_learning_torch.device import tree_map
+    from reinforcement_learning_torch.envs.env import (EnvConfig,
+                                                       RocketLeagueEnv)
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.physics import step as stepmod
+    dev = torch.device("cuda")
+    env = RocketLeagueEnv(EnvConfig(num_envs=E, team_size=2,
+                                    physics_backend="portable",
+                                    device="cuda"))
+    if not (env.portable and env.params.use_mesh
+            and env.params.dynamic_wheel_rays):
+        fail("portable: the env is not the portable route at full fidelity")
+    actions = torch.randint(0, env.num_actions, (E, CARS), generator=gen,
+                            device=dev)
+    controls = env.action_parser.parse(actions)
+    r = torch.randint(0, 4, (E, 8, CARS), generator=gen, device=dev,
+                      dtype=torch.int32)
+    A.arena_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = env.step(played, actions)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    step_ms = cuda_ms(lambda: env.step(played, actions), reps=2, warmup=0)
+    phys_ms = cuda_ms(lambda: stepmod.arena_step(
+        played.phys, controls, env.teams_np, r, env.params), reps=2,
+        warmup=0)
+    if A.arena_step.launches:
+        fail(f"portable: the kernel launched {A.arena_step.launches} times")
+    if not bool(torch.isfinite(out.obs).all()):
+        fail("portable: the observations hold NaN or inf")
+    ops_tick, ops_step = _ops_per_step(env, played, actions, r)
+    got = stepmod.arena_step(played.phys, controls, env.teams_np, r,
+                             env.params)
+    cpu_phys = tree_map(lambda t: t.cpu(), played.phys)
+    t0 = time.perf_counter()
+    want = stepmod.arena_step(cpu_phys, controls.cpu(), env.teams_np,
+                              r.cpu(), env.params)
+    cpu_s = time.perf_counter() - t0
+    want = tree_map(lambda t: t.to(dev), want)
+    torch.cuda.synchronize()
+    print(f"[portable] soccar {E} x 2v2, full fidelity, physics_backend="
+          f"'portable': env.step {step_ms:.1f} ms (first {first_s:.2f} s), "
+          f"of which the physics (arena_step, 8 ticks) {phys_ms:.1f} ms "
+          f"(CUDA events); the same step on the CPU {cpu_s:.2f} s (host "
+          f"clock, {torch.get_num_threads()} threads); tensor ops per tick "
+          f"{ops_tick}, per env.step {ops_step}; kernel launches 0; "
+          f"card {card}")
+    return compare("portable", got, want, int(PORTABLE_SHARE * E),
+                   sides=("card", "cpu"), floats_count=True)
+
+
+def hoops_path(card, gen):
+    """[hoops]: one ``Trainer.train_iteration`` of 1024 x 2v2 hoops at the
+    bench widths (bench_torch.bench_trainer: AdvancedObs 167,
+    DefaultAction 90, the 384-wide MLP trio, batch 50k, 2 epochs, 24 env
+    steps) through physics_backend "auto", which takes the portable route;
+    the kernel's launch count set to 0 before and read after must stay 0.
+    Prints the iteration's time split, the player-steps/s, the goals and
+    kickoffs, and the ms and tensor ops of an env step."""
+    import torch
+    from bench_torch import bench_trainer
+    from reinforcement_learning_torch.ops import arena_step as A
+    trainer = bench_trainer(E, "hoops", SEED)
+    env = trainer.env
+    if not env.portable or env.config.physics_backend != "auto":
+        fail("hoops: the env did not take the portable route by 'auto'")
+    if trainer.steps_per_itr != T:
+        fail(f"hoops: steps_per_itr {trainer.steps_per_itr} != {T}")
+    before = [p.detach().clone() for p in trainer.learner.parameters()]
+    state = trainer.init(SEED)
+    timers = Timers()
+    seen = {}
+    collect = trainer.collect
+
+    def keep(*args, **kw):
+        out = collect(*args, **kw)
+        seen["traj"] = out[1]
+        return out
+    trainer.collect = keep
+    timers.wrap(trainer, "collect", "collect")
+    timers.wrap(trainer, "prepare", "values + GAE + Welford")
+    timers.wrap(trainer.learner, "update", "update")
+    A.arena_step.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = trainer.train_iteration(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.arena_step.launches
+    del trainer.collect, trainer.prepare, trainer.learner.update
+    if launches:
+        fail(f"hoops: the kernel launched {launches} times")
+    check_metrics("hoops", metrics, before, trainer.learner)
+    traj = seen["traj"]
+    check_traj("hoops", env, traj, T)
+    goals = int(traj["goal"].sum())
+    kickoffs = E + int((traj["terminal"] != 0).sum())
+    actions = traj["action"][-1]
+    r = torch.randint(0, 4, (E, 8, CARS), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    step_ms = cuda_ms(lambda: env.step(state.env_states, actions), reps=2,
+                      warmup=0)
+    ops_tick, ops_step = _ops_per_step(env, state.env_states, actions, r)
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in timers.s.items())
+    print(f"[hoops] one train_iteration ({E} x 2v2 hoops, portable route, "
+          f"bench widths, batch 50k, 2 epochs, {T} env steps): {wall:.3f} s "
+          f"including first use ({split}); {T * E * CARS / wall:.0f} "
+          f"player-steps/s; kernel launches {launches}; goals {goals}, "
+          f"kickoffs {kickoffs}; env.step {step_ms:.1f} ms (CUDA events), "
+          f"tensor ops per tick {ops_tick}, per env.step {ops_step}; "
+          f"card {card}")
+    return state.env_states
+
+
+def ball_pred_path(card, played, mode):
+    """[ball_pred]: ``BallPredTracker(120)`` in ``mode`` over the 1024
+    balls of a played state, on the card and on the CPU: every entry held
+    to ``ops.ctick.TOLERANCES`` (ball pos, vel, ang_vel, rot), a ball
+    allowed off in PORTABLE_SHARE of the balls; the ms of an update."""
+    import torch
+    from reinforcement_learning_torch.device import tree_map
+    from reinforcement_learning_torch.ops.ctick import TOLERANCES
+    from reinforcement_learning_torch.physics.ball_pred import \
+        BallPredTracker
+    ball = played.phys.ball
+    tracker = BallPredTracker(120, game_mode=mode)
+    got = tracker.update(ball)
+    ms = cuda_ms(lambda: tracker.update(ball), reps=2, warmup=0)
+    t0 = time.perf_counter()
+    want = BallPredTracker(120, game_mode=mode).update(
+        tree_map(lambda t: t.cpu(), ball))
+    cpu_s = time.perf_counter() - t0
+    bad = torch.zeros(E, dtype=torch.bool)
+    worst = {}
+    for k in ("pos", "vel", "ang_vel", "rot"):
+        g, w = getattr(got, k).cpu(), getattr(want, k)
+        if tuple(g.shape[:2]) != (E, 120) or not bool(
+                torch.isfinite(g).all()):
+            fail(f"ball_pred: {k} has shape {tuple(g.shape)} or NaN")
+        atol, rtol = TOLERANCES[f"arena.ball.{k}"]
+        d = (g - w).abs()
+        bad |= (d > atol + rtol * w.abs()).reshape(E, -1).any(-1)
+        worst[k] = float(d.max())
+    n_bad = int(bad.sum())
+    good = {k: float((getattr(got, k).cpu() - getattr(want, k)).abs()[~bad]
+                     .max()) for k in worst}
+    moving = int((ball.vel.norm(dim=-1) > 0).sum())
+    print(f"[ball_pred] BallPredTracker(120) in {mode} over {E} balls "
+          f"({moving} moving): update "
+          f"{ms:.1f} ms on the card (CUDA events), {cpu_s:.2f} s on the CPU; "
+          f"balls off the CPU's prediction beyond tolerance {n_bad}; worst "
+          f"|card - cpu| over all balls {json.dumps(worst)}, over the "
+          f"others {json.dumps(good)}; card {card}")
+    if n_bad > int(PORTABLE_SHARE * E):
+        fail(f"ball_pred: {n_bad} balls differ card vs CPU (allowed "
+             f"{int(PORTABLE_SHARE * E)})")
+    falling = (got.vel[:, 1:, 2] < got.vel[:, :-1, 2]).any(-1)
+    if not bool(falling.any()):
+        fail("ball_pred: no ball fell under gravity")
 
 
 # ---------------------------------------------------------------------------
@@ -2374,6 +2601,7 @@ def main():
                                     record=label == "full")
         err[label] = max(err[label], entries[label].pop("end_err"))
     positions = entries["full"].pop("positions")
+    played = entries["full"].pop("played")
     del penv, fenv
 
     # 6. the main path: train_iteration at bench shape --------------------
@@ -2399,7 +2627,20 @@ def main():
     geometry_path(card, gen, positions)
     print(f"[geometry] phase {time.perf_counter() - t0:.1f} s")
 
-    # 11. small collection on the card vs the plain path on the CPU ------
+    # 11-13. the portable physics engine: soccar, hoops, ball prediction
+    t0 = time.perf_counter()
+    portable_path(card, gen, played)
+    print(f"[portable] phase {time.perf_counter() - t0:.1f} s")
+    del played
+    t0 = time.perf_counter()
+    hoops_played = hoops_path(card, gen)
+    print(f"[hoops] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ball_pred_path(card, hoops_played, "hoops")
+    print(f"[ball_pred] phase {time.perf_counter() - t0:.1f} s")
+    del hoops_played
+
+    # 14. small collection on the card vs the plain path on the CPU ------
     small_collect_agrees(dev, full)
 
     kernels = []

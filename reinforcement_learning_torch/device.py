@@ -3,7 +3,9 @@
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import numpy as np
 import torch
 
 
@@ -16,6 +18,18 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def constant(values, device) -> torch.Tensor:
+    """A static float32 vector (a tuple or numpy array) as a tensor on
+    ``device``, copied there once and kept: a copy from the host inside a
+    physics tick would synchronise with the card."""
+    return _constant(tuple(np.asarray(values, np.float32).tolist()), device)
 
 
 def tree_map(fn, tree, *rest):

@@ -2,8 +2,11 @@
 
 The JAX package vmaps a one-arena step; here every function is written
 over a leading env axis ``N`` (players ``P`` next).  The physics advance
-is one launch of the arena-step kernel (``ops.arena_step``); observations,
-rewards, terminals and auto-reset are plain tensor code around it.
+takes one of two routes (``EnvConfig.physics_backend``): the kernel route,
+one launch of the arena-step kernel (``ops.arena_step``), or the portable
+route, the batched torch engine of ``physics.step`` (hoops and real
+``.cmf`` assets).  Observations, rewards, terminals and auto-reset are
+plain tensor code around it.
 
 Auto-reset: terminal arenas are re-seeded by the state setter in the same
 step (EnvSet::Reset semantics); the pre-reset observation is returned as
@@ -29,8 +32,9 @@ from reinforcement_learning_torch.envs.rewards import (RewardCtx,
                                                        WeightedReward,
                                                        combine_rewards)
 from reinforcement_learning_torch.ops.arena_step import arena_step
-from reinforcement_learning_torch.ops.ctick import check_supported
+from reinforcement_learning_torch.ops.ctick import GAME_MODES, check_supported
 from reinforcement_learning_torch.physics import step as stepmod
+from reinforcement_learning_torch.physics import world as worldmod
 from reinforcement_learning_torch.physics.state import NUM_CONTROLS
 
 
@@ -47,6 +51,12 @@ class EnvConfig:
     no_touch_timeout: float = 30.0
     max_episode_seconds: float = 300.0
     device: str | None = None           # None: "cuda"
+    # "kernel": the arena-step kernel (the JAX package's "pallas"; soccar,
+    # heatseeker and snowday on the procedural arena).  "portable": the
+    # batched torch engine of physics.step (the JAX package's "xla"; every
+    # mode, real .cmf assets).  "auto": the kernel wherever it runs, else
+    # the portable engine (hoops, real assets).
+    physics_backend: str = "auto"
 
     @property
     def cars_per_arena(self) -> int:
@@ -115,9 +125,9 @@ class RocketLeagueEnv:
         self.config = config
         self.device = resolve_device(config.device)
         self.params = config.arena
-        # soccar, heatseeker and snowday run on the kernel (hoops needs the
-        # portable physics path, not ported yet)
-        check_supported(self.params)
+        self.portable = self._use_portable()
+        if not self.portable:
+            check_supported(self.params)
         self.teams_np = config.make_teams()
         self.teams = torch.as_tensor(self.teams_np, device=self.device)
         P = config.cars_per_arena
@@ -144,6 +154,31 @@ class RocketLeagueEnv:
         self.num_actions = self.action_parser.num_actions
         self.obs_size = self.obs_builder.obs_size
         self.generator = torch.Generator(device=self.device)
+
+    def _use_portable(self) -> bool:
+        """The physics route (JAX env.py:120-143, :308-321): the kernel
+        runs soccar, heatseeker and snowday on the procedural arena, the
+        portable engine everything.  Asking for the kernel where it does
+        not run raises; nothing swaps one route for the other."""
+        backend = self.config.physics_backend
+        if backend not in ("auto", "kernel", "portable"):
+            raise ValueError(f"physics_backend={backend!r}: use 'auto', "
+                             "'kernel' or 'portable'")
+        mode = self.params.game_mode
+        real_assets = self.params.use_mesh and not worldmod.is_procedural()
+        if backend == "kernel":
+            if mode not in GAME_MODES:
+                raise ValueError(
+                    f"the kernel route runs {GAME_MODES} (soccar geometry); "
+                    f"use physics_backend='portable' for {mode}")
+            if real_assets:
+                raise ValueError(
+                    "physics_backend='kernel' with use_mesh needs the "
+                    "procedural arena (world.init(mesh_dir=None)); the "
+                    "portable route collides against real .cmf assets")
+        if backend == "auto":
+            return mode not in GAME_MODES or real_assets
+        return backend == "portable"
 
     # ------------------------------------------------------------------
     def _reset_states(self) -> EnvState:
@@ -176,12 +211,20 @@ class RocketLeagueEnv:
         return state, self.obs(state), self.action_mask(state)
 
     def physics_step(self, state: EnvState, controls: torch.Tensor):
-        """The kernel launch: one respawn-table draw per car, then every
-        arena through ``tick_skip`` ticks."""
+        """Every arena through ``tick_skip`` ticks.  The kernel route takes
+        one respawn-table draw per car per env step, the portable route
+        one per car per tick (JAX step.py:699-700)."""
         cfg = self.config
+        shape = controls.shape[:2]
+        if self.portable:
+            shape = (shape[0], cfg.tick_skip, shape[1])
         respawn_idx = torch.randint(
-            0, C.CAR_RESPAWN_LOCATION_AMOUNT, controls.shape[:2],
+            0, C.CAR_RESPAWN_LOCATION_AMOUNT, shape,
             generator=self.generator, device=self.device, dtype=torch.int32)
+        if self.portable:
+            return stepmod.arena_step(state.phys, controls, self.teams_np,
+                                      respawn_idx, self.params,
+                                      cfg.tick_skip, cfg.action_delay)
         return arena_step(state.phys, controls, respawn_idx, self.params,
                           self.teams_np, cfg.tick_skip, cfg.action_delay)
 

@@ -54,6 +54,15 @@ def _build_pad_permutation() -> np.ndarray:
 PAD_PERMUTATION = _build_pad_permutation()
 
 
+def canonical_pads(values: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """Arena-order pad values (N, pads) in canonical order (N, 34).  The
+    permutation indexes soccar's 34 pads; only hoops, with 20, reaches the
+    clamp: the JAX package's gather clamps an index past the last pad to
+    it (XLA's out-of-range gather), so every canonical pad past 19 reads
+    pad 19 there, and here too."""
+    return values[:, torch.clamp(perm, max=values.shape[-1] - 1)]
+
+
 def _invert_vec(v, inv):
     """Negate x and y where ``inv`` (broadcast against v[..., 0])."""
     flip = torch.tensor([-1.0, -1.0, 1.0], device=v.device)
@@ -123,8 +132,8 @@ class AdvancedObs:
         ball_part = torch.cat([bp * POS_COEF, bv * VEL_COEF,
                                ba * ANG_VEL_COEF], dim=-1)
 
-        act = pads.is_active[:, self.perm]
-        cool = pads.cooldown[:, self.perm]
+        act = canonical_pads(pads.is_active, self.perm)
+        cool = canonical_pads(pads.cooldown, self.perm)
         inv_p = inv[None, :, None]
         act = torch.where(inv_p, act.flip(-1)[:, None], act[:, None])
         cool = torch.where(inv_p, cool.flip(-1)[:, None], cool[:, None])
@@ -205,7 +214,7 @@ class DefaultObs:
         parts = [_invert_vec(v[:, None, :].expand(N, P, 3), inv) * coef
                  for v, coef in ((ball.pos, POS_COEF), (ball.vel, VEL_COEF),
                                  (ball.ang_vel, ANG_VEL_COEF))]
-        act = pads.is_active[:, self.perm]
+        act = canonical_pads(pads.is_active, self.perm)
         act = torch.where(inv[None, :, None], act.flip(-1)[:, None],
                           act[:, None])
         return torch.cat(parts + [prev_actions, act.to(torch.float32)],

@@ -23,10 +23,11 @@ def spawn_table(game_mode: str):
     if game_mode == "heatseeker":
         return (C.CAR_SPAWN_LOCATION_AMOUNT_HEATSEEKER,
                 C.CAR_SPAWN_LOCATIONS_HEATSEEKER)
+    if game_mode == "hoops":
+        return C.CAR_SPAWN_LOCATION_AMOUNT, C.CAR_SPAWN_LOCATIONS_HOOPS
     if game_mode in ("soccar", "snowday"):
         return C.CAR_SPAWN_LOCATION_AMOUNT, C.CAR_SPAWN_LOCATIONS_SOCCAR
-    raise NotImplementedError(
-        f"kickoff for game_mode={game_mode!r} is not ported")
+    raise ValueError(f"no kickoff for game_mode={game_mode!r}")
 
 
 def kickoff_positions(order: torch.Tensor, teams: torch.Tensor,
@@ -53,11 +54,11 @@ def kickoff_positions(order: torch.Tensor, teams: torch.Tensor,
 
 def kickoff_state(fuzz: float = 0.0, order_fn=None, side_fn=None,
                   fuzz_fn=None):
-    """KickoffState (StateSetters/KickoffState.h) in soccar, heatseeker
-    and snowday; with ``fuzz`` > 0 FuzzedKickoffState, each car's spawn
-    position moved by U(-fuzz, fuzz) per axis.  ``order_fn(num_envs,
-    generator, device)`` draws the slot shuffles (default: uniform
-    permutations from ``generator``); ``side_fn(num_envs, generator,
+    """KickoffState (StateSetters/KickoffState.h) in every game mode;
+    with ``fuzz`` > 0 FuzzedKickoffState, each car's spawn position moved
+    by U(-fuzz, fuzz) per axis.  ``order_fn(num_envs, generator, device)``
+    draws the slot shuffles (default: uniform permutations from
+    ``generator``); ``side_fn(num_envs, generator,
     device)`` the heatseeker ball's side ((N,) bool, True for +y; default:
     a fair coin per arena); ``fuzz_fn(num_envs, num_cars, generator,
     device)`` the (N, P, 3) position offsets."""
@@ -100,6 +101,10 @@ def kickoff_state(fuzz: float = 0.0, order_fn=None, side_fn=None,
             # FLT_EPSILON of upward speed keeps the puck awake
             ball.vel = torch.zeros_like(ball.vel)
             ball.vel[:, 2] = 1.19e-7
+        elif mode == "hoops":
+            # the hoops ball is thrown up at kickoff
+            ball.vel = torch.zeros_like(ball.vel)
+            ball.vel[:, 2] = C.BALL_HOOPS_Z_VEL
         return phys
     fn.__name__ = "KickoffState" if fuzz == 0 else "FuzzedKickoffState"
     return fn

@@ -79,21 +79,44 @@ def rotmat_to_euler(R):
     return yaw, pitch, roll
 
 
+# The 3x3 products are elementwise multiply-and-sum, never a matmul: no
+# TF32 setting reaches them, and batched 3x3 products stay off cuBLAS.
+
 def rotate(R, v):
     """Local vector(s) into the world frame: R @ v."""
-    return torch.einsum('...ij,...j->...i', R, v)
+    return torch.sum(R * v[..., None, :], dim=-1)
 
 
 def inv_rotate(R, v):
     """World vector(s) into the body frame: R^T @ v."""
-    return torch.einsum('...ji,...j->...i', R, v)
+    return torch.sum(R * v[..., :, None], dim=-2)
+
+
+def matmul3(A, B):
+    """(..., 3, 3) @ (..., 3, 3), elementwise."""
+    return torch.sum(A[..., :, :, None] * B[..., None, :, :], dim=-2)
+
+
+_CURVES: dict = {}
+
+
+def _curve_tables(curve_table, dtype, device):
+    """A curve's (xs, ys) on ``device``, made once: building them per call
+    would copy from the host, and synchronise, on every evaluation."""
+    key = (id(curve_table), dtype, device)
+    hit = _CURVES.get(key)
+    if hit is None or hit[0] is not curve_table:
+        hit = (curve_table,) + tuple(
+            torch.as_tensor(np.asarray(t), dtype=dtype, device=device)
+            for t in curve_table)
+        _CURVES[key] = hit
+    return hit[1:]
 
 
 def curve(curve_table, x):
     """A LinearPieceCurve (Math.h): piecewise linear, clamped at both ends,
     with ``numpy.interp``'s arithmetic."""
-    xs, ys = (torch.as_tensor(np.asarray(t), dtype=x.dtype, device=x.device)
-              for t in curve_table)
+    xs, ys = _curve_tables(curve_table, x.dtype, x.device)
     i = torch.clamp(torch.searchsorted(xs, x.contiguous(), right=True), 1,
                     len(xs) - 1)
     x0, x1, y0, y1 = xs[i - 1], xs[i], ys[i - 1], ys[i]
@@ -131,7 +154,7 @@ def integrate_rotation(R, ang_vel, dt):
         torch.stack([z * x * k - y * s, z * y * k + x * s, c + z * z * k],
                     dim=-1),
     ], dim=-2)
-    return orthonormalize(torch.einsum('...ij,...jk->...ik', rot, R))
+    return orthonormalize(matmul3(rot, R))
 
 
 def take_along_axis(arr, idx, dim):

@@ -241,7 +241,7 @@ def _compact(cands, valid, out_slots):
     tgt = torch.where(valid, tgt, -1)
     j = torch.arange(out_slots, device=valid.device)
     onehot = (tgt[..., :, None] == j).to(cands.dtype)
-    out = torch.einsum('...kd,...kj->...jd', cands, onehot)
+    out = torch.sum(cands[..., :, None, :] * onehot[..., None], dim=-3)
     return out, torch.any(tgt[..., :, None] == j, dim=-2)
 
 
@@ -360,7 +360,7 @@ def box_box_manifold(p1, R1, he1, p2, R2, he2):
     B = torch.as_tensor(he2, dtype=f32, device=p1.device).expand(p2.shape)
 
     # relative rotation R_ij = col_i(R1) . col_j(R2)
-    Rrel = torch.einsum('...ki,...kj->...ij', R1, R2)
+    Rrel = torch.sum(R1[..., :, :, None] * R2[..., :, None, :], dim=-3)
     Q = torch.abs(Rrel)
 
     batch = p.shape[:-1]
@@ -387,7 +387,7 @@ def box_box_manifold(p1, R1, he1, p2, R2, he2):
                              + B[..., 1] * Q[..., i, 1]
                              + B[..., 2] * Q[..., i, 2])
         upd_face(pp[..., i], expr2, R1[..., :, i], i + 1)
-    p_in_2 = torch.einsum('...ki,...k->...i', R2, p)
+    p_in_2 = m.inv_rotate(R2, p)
     for i in range(3):
         expr2 = (A[..., 0] * Q[..., 0, i] + A[..., 1] * Q[..., 1, i]
                  + A[..., 2] * Q[..., 2, i] + B[..., i])
@@ -430,12 +430,12 @@ def box_box_manifold(p1, R1, he1, p2, R2, he2):
     depth_axis = -s
 
     # ---- the edge-edge single contact (btBoxBoxDetector.cpp:429-478)
-    sign_a = torch.where(torch.einsum('...i,...ij->...j', normal, R1) > 0,
+    sign_a = torch.where(m.inv_rotate(R1, normal) > 0,
                          1.0, -1.0)
-    pa = p1 + torch.einsum('...j,...ij->...i', sign_a * A, R1)
-    sign_b = torch.where(torch.einsum('...i,...ij->...j', normal, R2) > 0,
+    pa = p1 + m.rotate(R1, sign_a * A)
+    sign_b = torch.where(m.inv_rotate(R2, normal) > 0,
                          -1.0, 1.0)
-    pb = p2 + torch.einsum('...j,...ij->...i', sign_b * B, R2)
+    pb = p2 + m.rotate(R2, sign_b * B)
     ecode = torch.clamp(code - 7, min=0)
     ua = take_along_axis(R1, (ecode // 3)[..., None, None], -1)[..., 0]
     ub = take_along_axis(R2, (ecode % 3)[..., None, None], -1)[..., 0]
@@ -461,7 +461,7 @@ def box_box_manifold(p1, R1, he1, p2, R2, he2):
     Sb = torch.where(r1v, B, A)
     normal2 = torch.where(r1v, normal, -normal)
 
-    nr = torch.einsum('...ki,...k->...i', Rb, normal2)
+    nr = m.inv_rotate(Rb, normal2)
     anr = torch.abs(nr)
     # the largest |component|, with the source's strict comparisons
     # (ties go to z)
@@ -523,7 +523,7 @@ def box_box_manifold(p1, R1, he1, p2, R2, he2):
              + kk1[..., None] * Rb_a1[..., None, :]
              + kk2[..., None] * Rb_a2[..., None, :])
     Sa_N = take_along_axis(Sa, codeN[..., None], -1)
-    dep = Sa_N - torch.einsum('...i,...ki->...k', normal2, point)
+    dep = Sa_N - torch.sum(normal2[..., None, :] * point, dim=-1)
     pen_valid = ret_valid & (dep >= 0)
 
     # the penetrating points, compacted in order (the source's in-place

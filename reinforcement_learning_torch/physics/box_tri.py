@@ -25,6 +25,8 @@ Every function broadcasts over leading axes.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -69,6 +71,13 @@ def _seg_seg_closest(p1, q1, p2, q2, eps=1e-9):
     return p1 + d1 * s[..., None], p2 + d2 * t[..., None]
 
 
+@functools.lru_cache(maxsize=None)
+def _tables(device):
+    """The corner signs and edges on ``device``, copied there once."""
+    return (torch.as_tensor(_CORNER_SIGNS, device=device),
+            torch.as_tensor(_EDGES, device=device))
+
+
 def closest_pair_box_triangle(he, v0, v1, v2):
     """Closest pair of an origin-centred AABB with half extents ``he`` and
     the triangle (v0, v1, v2), all in the box's frame.  Returns (p_box
@@ -78,8 +87,7 @@ def closest_pair_box_triangle(he, v0, v1, v2):
     he = torch.as_tensor(he, dtype=v0.dtype, device=v0.device)
     he = he.expand(torch.broadcast_shapes(he.shape, v0.shape))
     tv = torch.stack(torch.broadcast_tensors(v0, v1, v2), dim=-2)
-    signs = torch.as_tensor(_CORNER_SIGNS, device=v0.device)
-    edges = torch.as_tensor(_EDGES, device=v0.device)
+    signs, edges = _tables(v0.device)
 
     # (a) the triangle's vertices clamped to the box: 3 pairs
     clamped = torch.clamp(tv, -he[..., None, :], he[..., None, :])
@@ -137,7 +145,7 @@ def sat_box_triangle(he, v0, v1, v2):
     he_b = torch.as_tensor(he, dtype=v0.dtype, device=v0.device).expand(
         v0.shape)
     r = torch.sum(torch.abs(axes) * he_b[..., None, :], -1)
-    t = torch.einsum('...vc,...ac->...av', tv, axes)
+    t = torch.sum(tv[..., None, :, :] * axes[..., :, None, :], dim=-1)
     tmin = torch.amin(t, dim=-1)
     tmax = torch.amax(t, dim=-1)
     overlap_a = torch.minimum(r, tmax) - torch.maximum(-r, tmin)

@@ -635,9 +635,9 @@ class MeshGrid:
     def candidates(self, pos: torch.Tensor) -> torch.Tensor:
         """(..., K) triangle indices (-1 padded) near ``pos`` (..., 3)."""
         cell = torch.floor((pos - self.origin) * self.inv_cell).long()
-        dims = torch.tensor(self.cells.shape[:3], device=pos.device)
-        cell = torch.minimum(torch.clamp(cell, min=0), dims - 1)
-        return self.cells[cell[..., 0], cell[..., 1], cell[..., 2]]
+        i, j, k = (torch.clamp(cell[..., d], 0, self.cells.shape[d] - 1)
+                   for d in range(3))
+        return self.cells[i, j, k]
 
     def _gather(self, idx: torch.Tensor):
         safe = torch.clamp(idx, min=0).long()

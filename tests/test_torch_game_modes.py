@@ -155,7 +155,8 @@ def test_kickoff_matches_jax(mode):
 
 def test_env_runs_the_modes_and_refuses_hoops():
     """The port's env resets and steps heatseeker and snowday through the
-    physics step (plane arena, 1 arena); hoops raises."""
+    physics step (plane arena, 1 arena); the kernel route refuses hoops,
+    and "auto" builds a hoops env on the portable route."""
     for mode in ("heatseeker", "snowday"):
         env = tenv.RocketLeagueEnv(tenv.EnvConfig(
             num_envs=1, team_size=2, game_mode=mode, device="cpu",
@@ -165,9 +166,13 @@ def test_env_runs_the_modes_and_refuses_hoops():
             assert abs(float(state.phys.ball.pos[0, 1])) == 2220.0
         state, out = env.step(state, torch.zeros(1, 4, dtype=torch.int64))
         assert torch.isfinite(out.obs).all()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tenv.RocketLeagueEnv(tenv.EnvConfig(num_envs=1, game_mode="hoops",
-                                            device="cpu"))
+                                            device="cpu",
+                                            physics_backend="kernel"))
+    env = tenv.RocketLeagueEnv(tenv.EnvConfig(num_envs=1, game_mode="hoops",
+                                              device="cpu"))
+    assert env.portable and env.params.game_mode == "hoops"
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,8 @@ def test_the_port_has_its_modules():
                 "deploy/rlbot_agent", "deploy/rlbot_packet_agent",
                 "tools/checkpoint_converter", "physics/box_tri",
                 "physics/box_box", "physics/mesh", "physics/arena_geom",
-                "physics/world"):
+                "physics/world", "physics/car", "physics/contacts",
+                "physics/ball_pred"):
         assert f"reinforcement_learning_torch/{mod}.py" in names, mod
     assert (ROOT / "reinforcement_learning_torch/csrc/arena_step.cu").exists()
     for src in ("mlp_infer.cpp", "bot_server.cpp"):

@@ -449,12 +449,16 @@ def test_train_iteration_runs_on_the_cpu(trained):
 
 def test_trainer_raises_for_what_is_not_ported(trained):
     """Self-play and checkpoints are ported now (tests/test_torch_selfplay
-    .py, tests/test_torch_services.py).  What still raises: hoops, which
-    needs the portable physics path, and a guiding policy without a
-    guiding strength, as in the JAX package."""
+    .py, tests/test_torch_services.py), and hoops runs on the portable
+    physics route.  What still raises, as in the JAX package: a guiding
+    policy without a guiding strength, and hoops asked of the kernel
+    route ("auto" takes the portable route)."""
     tr = trained[0]
     with pytest.raises(ValueError):
         ttrainer.Trainer(tr.env, tr.ppo_config, guiding_params=tr.learner)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         tenv.RocketLeagueEnv(tenv.EnvConfig(num_envs=1, game_mode="hoops",
-                                            device="cpu"))
+                                            device="cpu",
+                                            physics_backend="kernel"))
+    assert tenv.RocketLeagueEnv(tenv.EnvConfig(
+        num_envs=1, game_mode="hoops", device="cpu")).portable
