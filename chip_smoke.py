@@ -107,14 +107,29 @@ Phases, each of which must pass (nothing is caught):
    up) on the card against the CPU (every entry to the tolerances above,
    at most 2% of balls off), and the time of an update;
 14. the full-fidelity collection at 8 arenas on the card against the plain
-   path on the CPU, deterministic actions, fp32.
+   path on the CPU, deterministic actions, fp32;
+15. [parallel], data parallelism (parallel/mesh.py): the main path
+   (``initialize_distributed`` -> ``make_mesh`` -> ``shard_train_state``
+   -> ``Trainer.train_iteration`` at bench shape) in spawned ranks, each
+   with the kernel's launch count set to 0 before its first iteration and
+   read after (24), against step 6's warm-up iteration (the unsharded run
+   from the same seed): (a) one NCCL rank with all 1024 arenas; (b) two
+   gloo ranks sharing the card (NCCL refuses two ranks on one card), 512
+   arenas each; every parameter within tests/test_sharding.py's tolerance
+   (rtol 2e-4, atol 2e-5) and reward_mean within 1e-4, every metric of
+   the iteration and the return statistic within rtol 1e-3, atol 1e-5,
+   the step count exact, the two ranks' parameters bit-equal; a second iteration timed per rank, the bytes
+   all-reduced, the reset draw at the global width against the block's,
+   the kernel per rank at E=512 (the ranks in turn), and on rank 0 the
+   kernel against the plain version on its end state.
 
 Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` and allows
 at most one arena (0.1% of 1024) with a differing boolean or integer,
 none in the demo, car-car and game-mode states.  Prints the card's name
 and power limit, a ``kernels`` JSON line with one entry per configuration
 (soccar plane arena, soccar full fidelity, heatseeker, snowday, the
-train_2v2 path), and as its last line ``{"ok": true, "device": {...}}``.
+train_2v2 path, the data-parallel path per rank), and as its last line
+``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card or without the repository beside it.
 """
 
@@ -1051,9 +1066,11 @@ def train_path(card, gen):
     """The main path: ``Trainer.train_iteration`` at bench.py's shape.  One
     warm-up iteration, 3 timed ones with the kernel's launch count set to
     0 before and read after (24 per iteration), then one iteration split
-    into its parts.  Returns the launches of the timed iterations and, for
-    [deploy], the trained learner with the obs rows and masks of the
-    state it ends in."""
+    into its parts.  Returns the launches of the timed iterations, for
+    [deploy] the trained learner with the obs rows and masks of the state
+    it ends in, and for [parallel] the warm-up iteration's parameters,
+    metrics, return statistic and step count (the first iteration from
+    the seed) with the timed iterations' s/iteration."""
     import torch
     from bench_torch import bench_trainer
     from reinforcement_learning_torch.ops import arena_step as A
@@ -1069,6 +1086,7 @@ def train_path(card, gen):
     state, metrics = trainer.train_iteration(state)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    first = dp_result(trainer, state, metrics)
     iters = 3
     A.arena_step.launches = 0
     t0 = time.perf_counter()
@@ -1103,9 +1121,10 @@ def train_path(card, gen):
           f"each part): collect {t_collect:.3f} s, values + GAE + Welford "
           f"{t_prep:.3f} s, update {t_update:.3f} s; total {total:.3f} s "
           f"({T * E * CARS / total:.0f} player-steps/s)")
+    first["iter_s"] = wall / iters
     return launches, {"learner": trainer.learner,
                       "obs": state.obs.reshape(E * CARS, -1),
-                      "masks": state.masks.reshape(E * CARS, -1)}
+                      "masks": state.masks.reshape(E * CARS, -1)}, first
 
 
 def mode_path(label, mode, card, gen):
@@ -2260,6 +2279,239 @@ def geometry_path(card, gen, positions):
           f"CUDA-event means of 20 calls; card {card}")
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: parallel/mesh.py
+
+DP_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_sharding.py's
+DP_REWARD_ATOL = 1e-4
+# the iteration's metrics and return statistic, as test_torch_parallel.py
+# holds them: a wrong denominator or a doubled all-reduce scales the
+# gradient, which the global-norm clip and Adam leave out of the
+# parameters, but not out of the losses
+DP_METRIC_TOL = dict(rtol=1e-3, atol=1e-5)
+DP_TIMEOUT = 300.0   # s, a job of ranks, from their start
+
+
+def dp_result(trainer, state, metrics) -> dict:
+    """What [parallel] holds against the unsharded run after one
+    iteration: the parameters, every metric, the return statistic and the
+    step count."""
+    st = state.return_stat
+    return {"params": {k: v.detach().cpu().clone() for k, v in
+                       trainer.learner.state_dict().items()},
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "reward_mean": float(metrics["reward_mean"]),
+            "return_stat": [float(st.count), float(st.mean), float(st.m2)],
+            "total_timesteps": state.total_timesteps}
+
+
+def dp_rank(rank, world, backend, folder, card):
+    """One rank of the data-parallel main path, in a spawned process:
+    ``initialize_distributed`` -> ``make_mesh`` -> ``shard_train_state``
+    -> ``Trainer.train_iteration`` at bench shape on its E/W arenas, the
+    kernel's launch count set to 0 before and read after.  A second
+    iteration is timed; then the cost of the reset draw at the global
+    width against one at the block's, the kernel on the rank's end state
+    (the ranks in turn), and on rank 0 of two the kernel against the plain
+    version there.  Writes its results to ``folder/rank<r>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from bench_torch import bench_trainer
+    from reinforcement_learning_torch.envs.shard import EnvShard
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.parallel import mesh as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    M.initialize_distributed(f"file://{folder}/store", world, rank,
+                             device="cuda", backend=backend)
+    mesh = M.make_mesh(world, device_type="cuda")
+    trainer = bench_trainer(E, "soccar", SEED)
+    state = M.shard_train_state(trainer, trainer.init(SEED), mesh)
+    env, shard = trainer.env, trainer.env.shard
+    n = shard.local_envs
+
+    def timed_iteration():
+        nonlocal state
+        shard.reduced_bytes = shard.reductions = 0
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_iteration(state)
+        torch.cuda.synchronize()
+        return metrics, time.perf_counter() - t0
+    A.arena_step.launches = 0
+    metrics, first_s = timed_iteration()
+    res = {"launches": A.arena_step.launches,
+           **dp_result(trainer, state, metrics), "first_s": first_s,
+           "bytes": shard.reduced_bytes, "reductions": shard.reductions}
+    _, res["iter_s"] = timed_iteration()
+
+    # the reset draw at the global width (kept block) vs the block's width
+    res["reset_ms"] = cuda_ms(env._reset_states, reps=5)
+    env.shard = EnvShard(n)
+    res["reset_block_ms"] = cuda_ms(env._reset_states, reps=5)
+    env.shard = shard
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1 + rank)
+    actions, _ = trainer.learner.sample_actions(
+        state.obs.reshape(n * CARS, -1), state.masks.reshape(n * CARS, -1),
+        generator=gen)
+    actions = actions.reshape(n, CARS)
+    params = env.params
+    teams = tuple(int(t) for t in env.teams_np)
+    raw, _ = raw_kernel(A._library(), state.env_states.phys,
+                        env.action_parser.parse(actions),
+                        torch.randint(0, 4, (n, CARS), generator=gen,
+                                      device="cuda", dtype=torch.int32),
+                        params, teams)
+    for r in range(world):
+        dist.barrier()
+        if r == rank:
+            res["kernel_ms"] = cuda_ms(raw, reps=10, warmup=2)
+    dist.barrier()
+    dist.destroy_process_group()
+    if rank == 0 and world > 1:
+        res["entry"] = end_state("parallel", trainer, state, actions, params,
+                                 card, gen)
+    torch.save(res, os.path.join(folder, f"rank{rank}.pt"))
+
+
+def run_ranks(world, backend, card):
+    """Spawn ``world`` ranks of ``dp_rank`` (CUDA cannot fork), join them
+    within ``DP_TIMEOUT``; fails if one hangs or fails.  Returns their
+    results."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+    import torch
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    folder = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    try:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank,
+                             args=(r, world, backend, folder, card))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DP_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        if hung:
+            fail(f"[parallel] {world} {backend} ranks: ranks {hung} still "
+                 f"ran after {DP_TIMEOUT:.0f} s and were killed")
+        codes = [p.exitcode for p in procs]
+        if any(codes):
+            fail(f"[parallel] {world} {backend} ranks: exit codes {codes}")
+        return [torch.load(os.path.join(folder, f"rank{r}.pt"),
+                           weights_only=False) for r in range(world)]
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+
+
+def dp_agrees(label, res, first):
+    """Every parameter of a rank against the unsharded run's at the JAX
+    sharding test's tolerance, reward_mean within 1e-4, every metric
+    (the update's losses, KL, entropy, clip fraction, value_mean, ...)
+    and the return statistic at ``DP_METRIC_TOL``, the step count exact;
+    prints the max deviation of every parameter and metric.  Returns the
+    largest parameter deviation."""
+    dev = {k: float((res["params"][k] - w).abs().max())
+           for k, w in first["params"].items()}
+    bad = [k for k, w in first["params"].items()
+           if not bool(((res["params"][k] - w).abs()
+                        <= DP_TOL["atol"] + DP_TOL["rtol"] * w.abs()).all())]
+    d_reward = abs(res["reward_mean"] - first["reward_mean"])
+    print(f"[parallel] {label}: max |param - unsharded| per parameter: "
+          + json.dumps({k: float(f"{v:.3g}") for k, v in dev.items()}))
+    print(f"[parallel] {label}: reward_mean {res['reward_mean']:.6f} vs "
+          f"{first['reward_mean']:.6f} unsharded (|diff| {d_reward:.3g})")
+    if bad:
+        worst = max(bad, key=lambda k: dev[k])
+        fail(f"[parallel] {label}: {len(bad)} parameters beyond rtol "
+             f"{DP_TOL['rtol']}, atol {DP_TOL['atol']} of the unsharded "
+             f"run: {bad}; the largest deviation {dev[worst]:.3g} on "
+             f"{worst}")
+    if d_reward >= DP_REWARD_ATOL:
+        fail(f"[parallel] {label}: reward_mean differs by {d_reward:.3g}")
+    if set(res["metrics"]) != set(first["metrics"]):
+        fail(f"[parallel] {label}: metrics {sorted(res['metrics'])} != "
+             f"{sorted(first['metrics'])}")
+    pairs = {**{k: (res["metrics"][k], v)
+                for k, v in first["metrics"].items()},
+             **{f"return_stat.{k}": (a, b) for k, a, b in zip(
+                 ("count", "mean", "m2"), res["return_stat"],
+                 first["return_stat"])}}
+    d_metric = {k: abs(a - b) for k, (a, b) in pairs.items()}
+    print(f"[parallel] {label}: |metric - unsharded|: " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in d_metric.items()}))
+    off = {k: (a, b) for k, (a, b) in pairs.items()
+           if not abs(a - b) <= (DP_METRIC_TOL["atol"]
+                                 + DP_METRIC_TOL["rtol"] * abs(b))}
+    if off:
+        fail(f"[parallel] {label}: beyond rtol {DP_METRIC_TOL['rtol']}, "
+             f"atol {DP_METRIC_TOL['atol']} of the unsharded run "
+             f"(sharded, unsharded): {off}")
+    if res["total_timesteps"] != first["total_timesteps"]:
+        fail(f"[parallel] {label}: total_timesteps {res['total_timesteps']}"
+             f" != {first['total_timesteps']} unsharded")
+    return max(dev.values())
+
+
+def parallel_path(card, first):
+    """[parallel]: the main path through ``parallel/mesh.py`` against the
+    unsharded run from the same seed (``first``, [train]'s warm-up
+    iteration): (a) one NCCL rank holding all 1024 arenas; (b) two gloo
+    ranks sharing the card (NCCL refuses two ranks on one card), 512
+    arenas each, bit-equal to each other.  Returns (b)'s ``kernels``
+    entry: rank 0's kernel on its end state against the plain version."""
+    import torch
+    (a,) = run_ranks(1, "nccl", card)
+    if a["launches"] != T:
+        fail(f"[parallel] (a): arena_step launched {a['launches']} times "
+             f"in one iteration of {T} env steps")
+    dp_agrees(f"(a) 1 NCCL rank, E={E}", a, first)
+    print(f"[parallel] (a) 1 NCCL rank x {E} arenas: first iteration "
+          f"{a['first_s']:.3f} s, then {a['iter_s']:.3f} s/iteration; "
+          f"unsharded {first['iter_s']:.3f} s/iteration ([train]'s timed "
+          f"iterations); {a['bytes']} bytes all-reduced per iteration in "
+          f"{a['reductions']} all-reduces; reset draw {a['reset_ms']:.3f} "
+          f"ms (launches {a['launches']}); card {card}")
+
+    ranks = run_ranks(2, "gloo", card)
+    for r, res in enumerate(ranks):
+        if res["launches"] != T:
+            fail(f"[parallel] (b) rank {r}: arena_step launched "
+                 f"{res['launches']} times in one iteration of {T} env "
+                 "steps")
+        dp_agrees(f"(b) 2 gloo ranks, E={E // 2}, rank {r}", res, first)
+    same = [k for k in ranks[0]["params"]
+            if not torch.equal(ranks[0]["params"][k], ranks[1]["params"][k])]
+    if same:
+        fail(f"[parallel] (b): the ranks' parameters differ: {same}")
+    for r, res in enumerate(ranks):
+        print(f"[parallel] (b) rank {r} of 2 (gloo, sharing the card), "
+              f"{E // 2} arenas: first iteration {res['first_s']:.3f} s, "
+              f"then {res['iter_s']:.3f} s/iteration (unsharded {E} arenas: "
+              f"{first['iter_s']:.3f} s; two ranks on one card measure "
+              f"contention, not scaling); {res['bytes']} bytes all-reduced "
+              f"per iteration in {res['reductions']} all-reduces; kernel "
+              f"{res['kernel_ms']:.4f} ms/env step at E={E // 2} (ranks in "
+              f"turn); reset draw at the global width {res['reset_ms']:.3f} "
+              f"ms, at the block's {res['reset_block_ms']:.3f} ms; "
+              f"launches {res['launches']}; card {card}")
+    print("[parallel] (b) the two ranks' parameters are bit-equal")
+    entry = ranks[0]["entry"]
+    return {"launches": ranks[0]["launches"], "ms": ranks[0]["kernel_ms"],
+            "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            "max_abs_err": entry["end_err"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2605,7 +2857,7 @@ def main():
     del penv, fenv
 
     # 6. the main path: train_iteration at bench shape --------------------
-    entries["full"]["launches"], bench = train_path(card, gen)
+    entries["full"]["launches"], bench, first = train_path(card, gen)
 
     # 7. one train_iteration in each game mode ---------------------------
     for mode in ("heatseeker", "snowday"):
@@ -2643,6 +2895,13 @@ def main():
     # 14. small collection on the card vs the plain path on the CPU ------
     small_collect_agrees(dev, full)
 
+    # 15. data parallelism: the main path on one NCCL rank and on two gloo
+    # ranks sharing the card, against the unsharded run -------------------
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    entries["parallel"] = parallel_path(card, first)
+    print(f"[parallel] phase {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for label, what, where in (
             ("plane", "soccar, plane arena", "pallas_step.py:126"),
@@ -2663,6 +2922,13 @@ def main():
         "source": "reinforcement_learning_torch/csrc/arena_step.cu",
         "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
         **entries["train_2v2"], "library_ms": None})
+    kernels.append({
+        "name": "arena_step (soccar, full fidelity: the data-parallel main "
+                "path, one of 2 ranks sharing the card, 512 of 1024 "
+                "arenas; launches per rank)", "route": "cuda",
+        "source": "reinforcement_learning_torch/csrc/arena_step.cu",
+        "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
+        **entries["parallel"], "library_ms": None})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,11 @@ plain tensor code around it.
 Auto-reset: terminal arenas are re-seeded by the state setter in the same
 step (EnvSet::Reset semantics); the pre-reset observation is returned as
 ``final_obs`` for truncation bootstrapping.
+
+Data parallelism (``parallel/mesh.py``): a rank steps its block of the
+arenas (``shard``), and draws every reset state and respawn index at the
+global shape, keeping its block, so that it draws what the unsharded env
+draws for those arenas.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from reinforcement_learning_torch.envs.obs import AdvancedObs
 from reinforcement_learning_torch.envs.rewards import (RewardCtx,
                                                        WeightedReward,
                                                        combine_rewards)
+from reinforcement_learning_torch.envs.shard import EnvShard
 from reinforcement_learning_torch.ops.arena_step import arena_step
 from reinforcement_learning_torch.ops.ctick import GAME_MODES, check_supported
 from reinforcement_learning_torch.physics import step as stepmod
@@ -154,6 +160,8 @@ class RocketLeagueEnv:
         self.num_actions = self.action_parser.num_actions
         self.obs_size = self.obs_builder.obs_size
         self.generator = torch.Generator(device=self.device)
+        # the arenas this process steps; shard_train_state sets a block
+        self.shard = EnvShard(config.num_envs)
 
     def _use_portable(self) -> bool:
         """The physics route (JAX env.py:120-143, :308-321): the kernel
@@ -182,10 +190,13 @@ class RocketLeagueEnv:
 
     # ------------------------------------------------------------------
     def _reset_states(self) -> EnvState:
-        N, P = self.config.num_envs, self.config.cars_per_arena
+        """Every arena's reset state, drawn at the global width; this
+        rank's block of them."""
+        P, shard = self.config.cars_per_arena, self.shard
+        N = shard.local_envs
         dev = self.device
-        phys = self.state_setter(self.generator, self.params, self.teams, N,
-                                 dev)
+        phys = tree_map(shard.take, self.state_setter(
+            self.generator, self.params, self.teams, shard.global_envs, dev))
         zi = lambda: torch.zeros(N, dtype=torch.int32, device=dev)  # noqa
         return EnvState(
             phys=phys, prev_arena=phys.arena,
@@ -215,12 +226,12 @@ class RocketLeagueEnv:
         one respawn-table draw per car per env step, the portable route
         one per car per tick (JAX step.py:699-700)."""
         cfg = self.config
-        shape = controls.shape[:2]
+        shape = (self.shard.global_envs, cfg.cars_per_arena)
         if self.portable:
             shape = (shape[0], cfg.tick_skip, shape[1])
-        respawn_idx = torch.randint(
+        respawn_idx = self.shard.take(torch.randint(
             0, C.CAR_RESPAWN_LOCATION_AMOUNT, shape,
-            generator=self.generator, device=self.device, dtype=torch.int32)
+            generator=self.generator, device=self.device, dtype=torch.int32))
         if self.portable:
             return stepmod.arena_step(state.phys, controls, self.teams_np,
                                       respawn_idx, self.params,

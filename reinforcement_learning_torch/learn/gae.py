@@ -17,12 +17,19 @@ import torch
 from reinforcement_learning_torch.envs.terminals import NORMAL, TRUNCATED
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
 def compute_gae(rewards, terminal_types, value_preds, next_value_preds,
                 gamma: float = 0.99, lam: float = 0.95, return_std=None,
-                reward_clip_range: float = 200.0):
+                reward_clip_range: float = 200.0, all_sum=_local):
     """All inputs ``(T, B)``.  ``next_value_preds[t]`` is the critic value
     of step t's post-step observation before auto-reset.  Returns
-    (advantages, target_values, returns, reward_clip_portion)."""
+    (advantages, target_values, returns, reward_clip_portion).
+    ``all_sum`` sums the clip portion's totals: a data-parallel rank
+    passes ``EnvShard.all_sum``, so that they are over every rank's
+    columns; the recurrence runs per column."""
     is_normal = terminal_types == NORMAL
     is_trunc = terminal_types == TRUNCATED
     not_done = (~is_normal & ~is_trunc).to(torch.float32)
@@ -33,11 +40,11 @@ def compute_gae(rewards, terminal_types, value_preds, next_value_preds,
         inv = 1.0 / torch.clamp(return_std, min=1e-8)
         should_norm = (return_std != 0.0) & (return_std != 1.0)
         norm_rew = torch.where(should_norm, rewards * inv, rewards)
-        total = torch.sum(torch.abs(norm_rew))
         clipped = (torch.clamp(norm_rew, -reward_clip_range,
                                reward_clip_range)
                    if reward_clip_range > 0 else norm_rew)
-        total_clipped = torch.sum(torch.abs(clipped))
+        total, total_clipped = all_sum(torch.stack([
+            torch.sum(torch.abs(norm_rew)), torch.sum(torch.abs(clipped))]))
         clip_portion = torch.where(
             should_norm,
             (total - total_clipped) / torch.clamp(total, min=1e-7),

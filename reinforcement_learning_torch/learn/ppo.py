@@ -14,6 +14,12 @@ update (GigaLearnCPP/PPO/PPOLearner.cpp).
   * advantages normalised per minibatch (:363-370); KL, clip fraction and
     ratio averaged over the update (:481-490)
 
+Data-parallel (``parallel/mesh.py``): a rank holds its arenas' rows; the
+permutation is drawn over the global rows and each rank trains on its
+rows of each minibatch.  Every mean is a local sum over the minibatch's
+global count (or weight sum), so the all-reduced gradient, norm and
+metrics are the unsharded ones.
+
 Inference may run in bf16 (``half_precision``); the update runs fp32.
 """
 
@@ -27,6 +33,7 @@ import torch
 from torch import nn
 
 from reinforcement_learning_torch.device import resolve_device
+from reinforcement_learning_torch.envs.shard import EnvShard
 from reinforcement_learning_torch.learn.optim import OPTIMIZERS
 from reinforcement_learning_torch.models import mlp
 
@@ -274,21 +281,25 @@ class PPOLearner(nn.Module):
             out.params_from_jax(guiding)
         return out.requires_grad_(False)
 
-    def loss(self, batch: dict, guiding: "PPOLearner | None" = None):
+    def loss(self, batch: dict, guiding: "PPOLearner | None" = None,
+             denom=None):
         """(total loss, metrics) of one minibatch with fp32 forward passes.
         ``batch``: obs, mask, action, old_logp, advantage, target_value and
         optionally weight (per row; 0 leaves a row out).  ``guiding``: a
         learner from ``guide``; with ``guiding_strength`` > 0 the loss adds
-        the mean L1 distance of the two policies' probabilities, scaled."""
+        the mean L1 distance of the two policies' probabilities, scaled.
+        Every mean is a sum over the rows divided by ``denom``: by default
+        the row count, or the weight sum (at least 1); a data-parallel
+        rank passes the whole minibatch's, so that its loss and metrics
+        are its share of the minibatch's."""
         cfg = self.config
         w = batch.get("weight")
-        if w is None:
-            wmean = torch.mean
-        else:
-            wsum = torch.clamp(torch.sum(w), min=1.0)
+        if denom is None:
+            denom = (batch["obs"].shape[0] if w is None
+                     else torch.clamp(torch.sum(w), min=1.0))
 
-            def wmean(x):
-                return torch.sum(x * w) / wsum
+        def wmean(x):
+            return torch.sum(x if w is None else x * w) / denom
         feat = self._features(batch["obs"], half=False)
         probs = self._masked_probs(self._logits(feat, False), batch["mask"])
         logp = torch.log(torch.gather(
@@ -350,7 +361,8 @@ class PPOLearner(nn.Module):
             p.add_(g * scale)
 
     def update(self, data: dict, generator: torch.Generator | None = None,
-               perms: torch.Tensor | None = None, guiding=None) -> dict:
+               perms: torch.Tensor | None = None, guiding=None,
+               shard: EnvShard | None = None, players: int = 1) -> dict:
         """One PPO learn phase (PPOLearner::Learn, :278-581) on flat
         ``(B, ...)`` rows: obs, mask, action, old_logp, advantage,
         target_value (and optionally weight).  Each epoch shuffles the
@@ -361,15 +373,27 @@ class PPOLearner(nn.Module):
         normalisation and one step of every model from one set of grads.
         ``guiding``: a frozen guiding policy, a learner or a parameter tree
         (see ``guide``; a learner with this config is used as it is).
-        Returns the metrics averaged over all minibatches."""
+        Returns the metrics averaged over all minibatches.
+
+        ``shard`` (data-parallel, ``EnvShard``): ``data`` holds this rank's
+        block of arenas, rows flat in (step, arena, player) order with
+        ``players`` rows per arena; the permutations run over the global
+        rows, each minibatch is this rank's rows of it (one host sync per
+        epoch), its advantage mean and std, weight sum, gradients and the
+        metrics are all-reduced."""
         cfg = self.config
         if guiding is not None and not (isinstance(guiding, PPOLearner)
                                         and guiding.config == cfg):
             guiding = self.guide(guiding)
-        total = data["obs"].shape[0]
+        local = data["obs"].shape[0]
+        if shard is None:
+            shard, players = EnvShard(local), 1
+        total = local // shard.local_envs * shard.global_envs
         num_batches = max(total // max(cfg.batch_size, 1), 1)
         batch_size = total // num_batches
         used = num_batches * batch_size
+        weighted = "weight" in data
+        params = list(self.parameters())
         sums = None
         with _full_fp32_matmul():
             for epoch in range(cfg.epochs):
@@ -377,20 +401,41 @@ class PPOLearner(nn.Module):
                     total, generator=generator, device=self.device))
                 perm = perm[:used].to(self.device).reshape(num_batches,
                                                            batch_size)
-                for idx in perm:
+                for idx in shard.local_rows(perm, players):
                     batch = {k: v[idx] for k, v in data.items()}
                     adv = batch["advantage"]
-                    batch["advantage"] = (adv - torch.mean(adv)) / (
-                        torch.std(adv, correction=0) + 1e-8)
+                    first = torch.stack([torch.sum(adv)] + (
+                        [torch.sum(batch["weight"])] if weighted else []))
+                    first = shard.all_sum(first)
+                    mean = first[0] / batch_size
+                    var = shard.all_sum(torch.sum((adv - mean) ** 2)
+                                        .reshape(1))[0] / batch_size
+                    batch["advantage"] = (adv - mean) / (torch.sqrt(var)
+                                                         + 1e-8)
+                    denom = (torch.clamp(first[1], min=1.0) if weighted
+                             else batch_size)
                     self.zero_grad()
-                    total_loss, aux = self.loss(batch, guiding)
+                    total_loss, aux = self.loss(batch, guiding, denom)
                     total_loss.backward()
+                    if shard.sharded:
+                        _all_sum_grads(params, shard)
                     for name in self._models():
                         self._step_model(name)
                     sums = aux if sums is None else {
                         k: sums[k] + v for k, v in aux.items()}
         n = cfg.epochs * num_batches
-        return {k: v / n for k, v in sums.items()}
+        reduced = shard.all_sum(torch.stack(list(sums.values())))
+        return {k: v / n for k, v in zip(sums, reduced)}
+
+
+@torch.no_grad()
+def _all_sum_grads(params, shard: EnvShard):
+    """Sum every parameter's gradient over the ranks, in one flat
+    all-reduce."""
+    grads = [p.grad for p in params]
+    flat = shard.all_sum(torch.cat([g.reshape(-1) for g in grads]))
+    for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(part.reshape(g.shape))
 
 
 def _mlp_tree(sd: dict, prefix: str) -> dict:

@@ -35,14 +35,25 @@ class WelfordState:
         return torch.sqrt(torch.clamp(self.variance, min=1e-12))
 
 
-def update_batch(state: WelfordState, x: torch.Tensor) -> WelfordState:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def update_batch(state: WelfordState, x: torch.Tensor,
+                 all_sum=_local) -> WelfordState:
     """Merge a batch of samples (leading axis: samples; trailing dims equal
-    ``state.mean``'s) by the parallel Welford/Chan update."""
+    ``state.mean``'s) by the parallel Welford/Chan update.  The batch's
+    count and sum, then its squares about their mean, are summed by
+    ``all_sum``: by default ``x`` is the whole batch; a data-parallel rank
+    passes ``EnvShard.all_sum``, so that the update sees every rank's part
+    of the batch at once."""
     x = x.reshape((-1,) + tuple(state.mean.shape)).to(torch.float32)
-    n_b = torch.tensor(float(x.shape[0]), dtype=torch.float32,
-                       device=x.device)
-    mean_b = torch.mean(x, dim=0)
-    m2_b = torch.sum((x - mean_b) ** 2, dim=0)
+    first = all_sum(torch.cat([
+        torch.full((1,), float(x.shape[0]), device=x.device),
+        torch.sum(x, dim=0).reshape(-1)]))
+    n_b = first[0]
+    mean_b = first[1:].reshape(state.mean.shape) / n_b
+    m2_b = all_sum(torch.sum((x - mean_b) ** 2, dim=0).contiguous())
     n_a = state.count
     n = n_a + n_b
     delta = mean_b - state.mean

@@ -37,7 +37,7 @@ def test_the_port_has_its_modules():
                 "envs/obs", "models/mlp", "learn/ppo", "learn/trainer",
                 "learn/gae", "learn/welford", "learn/optim",
                 "learn/selfplay", "learn/transfer", "envs/rewards",
-                "envs/kickoff_reward", "envs/terminals",
+                "envs/kickoff_reward", "envs/terminals", "envs/shard",
                 "envs/state_setters", "utils/checkpoint", "utils/metrics",
                 "utils/report", "utils/render", "utils/keypress",
                 "examples/train_2v2", "examples/train_1v1",
@@ -46,7 +46,8 @@ def test_the_port_has_its_modules():
                 "tools/checkpoint_converter", "physics/box_tri",
                 "physics/box_box", "physics/mesh", "physics/arena_geom",
                 "physics/world", "physics/car", "physics/contacts",
-                "physics/ball_pred"):
+                "physics/ball_pred", "parallel/mesh",
+                "tools/bench_scaling"):
         assert f"reinforcement_learning_torch/{mod}.py" in names, mod
     assert (ROOT / "reinforcement_learning_torch/csrc/arena_step.cu").exists()
     for src in ("mlp_infer.cpp", "bot_server.cpp"):
