@@ -62,7 +62,7 @@ Phases, each of which must pass (nothing is caught):
    from the trained parameters, the ratings moved by the ELO rule for the
    goals counted, every metric finite; the kernel against the plain
    version on its end state (E=512) and on the skill match's (E=16), each
-   timed with its bound; one env step of 32 played arenas on the card
+   timed with the plain version and its bound; one env step of 32 played arenas on the card
    against the plain path on the CPU; a checkpoint saved under ``build/``
    and resumed bit-equal into a fresh trainer through ``init_or_resume``,
    which trains one more iteration; then one iteration of the train_1v1
@@ -121,21 +121,43 @@ Phases, each of which must pass (nothing is caught):
    the step count exact, the two ranks' parameters bit-equal; a second iteration timed per rank, the bytes
    all-reduced, the reset draw at the global width against the block's,
    the kernel per rank at E=512 (the ranks in turn), and on rank 0 the
-   kernel against the plain version on its end state.
+   kernel against the plain version on its end state;
+16. [parity], the parity instruments (tools/parity*.py twins) against
+   the reference oracle (``tools/oracle/build-fma/rs_oracle``, run on the
+   host in a thread beside the card's work): the 26-scenario battery of 240 ticks through the oracle, through
+   the kernel route (``parity.run_torch_kernel``: tick_skip 1, action
+   delay 0, the 24 one-car scenarios as one arena axis and the 2 two-car
+   ones as another, the launch count set to 0 before each and read after,
+   240 each) and through the portable engine (``parity.run_torch``, no
+   kernel launch); the kernel at that launch shape held against its plain
+   version at 5 ticks of each group to ``ops.ctick.DEFAULT_TOLERANCE``
+   (1e-4, 1e-4) with no flag differing, timed with its bound at tick 120;
+   PARITY.md's exact rows (driving, steering, powerslide, boost, jumps,
+   the ball drop, the bump) within the BallState::Matches margins (pos
+   0.8 uu, vel 0.4 uu/s, ang_vel 0.02 rad/s) with no flag differing on
+   both routes, every other row printed beside PARITY.md's JAX figure;
+   one teacher-forced ``front_flip`` through the kernel (239 launches);
+17. [profile], the profilers (tools/profile_*.py twins): profile_split's
+   six-part split of the main path at 1024 x 2v2 (env steps, rollout,
+   inference, PPO update, one value pass, train_iteration) and
+   profile_phys's kernel routes (plane arena, full fidelity) at 256 x 2v2,
+   each line with the card's name and power limit.
 
-Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` and allows
-at most one arena (0.1% of 1024) with a differing boolean or integer,
-none in the demo, car-car and game-mode states.  Prints the card's name
-and power limit, a ``kernels`` JSON line with one entry per configuration
+Every kernel-vs-plain comparison uses ``ops.ctick.TOLERANCES`` (the
+battery's: ``DEFAULT_TOLERANCE`` on every float) and allows at most one
+arena (0.1% of 1024) with a differing boolean or integer, none in the
+demo, car-car, game-mode and battery states.  Prints the card's name and
+power limit, a ``kernels`` JSON line with one entry per configuration
 (soccar plane arena, soccar full fidelity, heatseeker, snowday, the
-train_2v2 path, the data-parallel path per rank), and as its last line
-``{"ok": true, "device": {...}}``.
+train_2v2 path, the data-parallel path per rank, the two parity battery
+groups), and as its last line ``{"ok": true, "device": {...}}``.
 Exits non-zero without a CUDA card or without the repository beside it.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import subprocess
@@ -177,9 +199,11 @@ EVENT_TIMERS = ("arena.cars.car_contact_cooldown",
 
 
 def compare(name, got, want, allowed_arenas, sides=("kernel", "plain"),
-            floats_count=False):
+            floats_count=False, tolerance=None):
     """Hold kernel output ``got`` to the plain version's ``want`` field by
-    field (``sides`` names the two in the messages).  Arenas where an
+    field (``sides`` names the two in the messages), each float field to
+    its ``ops.ctick.TOLERANCES`` entry, or every one to ``tolerance``
+    (atol, rtol) where given.  Arenas where an
     integer or boolean field, or an event timer, differs are listed; at
     most ``allowed_arenas`` may, and their floats are not compared.  With
     ``floats_count``, an arena with a float beyond its tolerance is listed
@@ -189,6 +213,8 @@ def compare(name, got, want, allowed_arenas, sides=("kernel", "plain"),
     from reinforcement_learning_torch.ops.ctick import (DEFAULT_TOLERANCE,
                                                         TOLERANCES)
     g, w = flatten(got), flatten(want)
+    tols = {} if tolerance is not None else TOLERANCES
+    default = tolerance if tolerance is not None else DEFAULT_TOLERANCE
     n = w["arena.tick_count"].shape[0]
     bad = torch.zeros(n, dtype=torch.bool, device=g["arena.tick_count"].device)
     flips = {}
@@ -196,7 +222,7 @@ def compare(name, got, want, allowed_arenas, sides=("kernel", "plain"),
         if a.dtype.is_floating_point and k not in EVENT_TIMERS:
             continue
         if k in EVENT_TIMERS:
-            atol, rtol = TOLERANCES.get(k, DEFAULT_TOLERANCE)
+            atol, rtol = tols.get(k, default)
             d = ((g[k] - a).abs() > atol + rtol * a.abs()).reshape(n, -1)
             d = d.any(-1)
             for e in d.nonzero()[:, 0].tolist()[:4]:
@@ -211,7 +237,7 @@ def compare(name, got, want, allowed_arenas, sides=("kernel", "plain"),
         for k, a in w.items():
             if not a.dtype.is_floating_point or k in EVENT_TIMERS:
                 continue
-            atol, rtol = TOLERANCES.get(k, DEFAULT_TOLERANCE)
+            atol, rtol = tols.get(k, default)
             d = (((g[k] - a).abs() > atol + rtol * a.abs())
                  | ~torch.isfinite(g[k])).reshape(n, -1).any(-1)
             if d.any():
@@ -236,7 +262,7 @@ def compare(name, got, want, allowed_arenas, sides=("kernel", "plain"),
         dev = (b[ok] - a[ok]).abs()
         worst[k] = float(dev.max()) if dev.numel() else 0.0
         err = max(err, worst[k])
-        atol, rtol = TOLERANCES.get(k, DEFAULT_TOLERANCE)
+        atol, rtol = tols.get(k, default)
         lim = atol + rtol * a[ok].abs()
         if bool((dev > lim).any()) or not bool(torch.isfinite(b).all()):
             at = int((dev - lim).reshape(dev.shape[0], -1).amax(-1).argmax())
@@ -937,7 +963,8 @@ def drive_path(label, env, params, card, gen, T_steps, record=False):
     return entry
 
 
-def raw_kernel(lib, phys, ctl, r, params, teams):
+def raw_kernel(lib, phys, ctl, r, params, teams, tick_skip=8,
+               action_delay=7):
     """(a function launching the kernel alone on the packed buffers of
     ``phys``, the bytes the launch reads and writes)."""
     import torch
@@ -955,7 +982,7 @@ def raw_kernel(lib, phys, ctl, r, params, teams):
             prm.ctypes.data, prm.nbytes, f.data_ptr(), i.data_ptr(),
             u.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
             outs[2].data_ptr(), ctl_k.data_ptr(), r_k.data_ptr(), n, P,
-            8, 7, stream)
+            tick_skip, action_delay, stream)
         if e:
             fail(f"kernel launch error {e}")
     nbytes = sum(x.numel() * x.element_size()
@@ -1379,28 +1406,33 @@ class Timers:
 def kernel_at(label, env, phys, actions, card, gen):
     """The kernel against the plain version on ``phys`` stepped with
     ``actions``, the plain run counting the work the inputs need; the
-    kernel's time and bound there.  Returns (ms, bound_ms, bound_by,
-    deviation)."""
+    kernel's and the plain version's times and the bound there.  Returns
+    (ms, bound_ms, bound_by, deviation, plain_ms)."""
     import torch
     from reinforcement_learning_torch.ops import arena_step as A
-    from reinforcement_learning_torch.ops import opcount
+    from reinforcement_learning_torch.ops import ctick, opcount
     params, teams = env.params, tuple(int(t) for t in env.teams_np)
+    consts = A._consts(params, teams)
     n, P = phys.cars.boost.shape
     ctl = env.action_parser.parse(actions)
     r = torch.randint(0, 4, (n, P), generator=gen, device=actions.device,
                       dtype=torch.int32)
-    work = opcount.step_work(phys, ctl, r, A._consts(params, teams))
+    work = opcount.step_work(phys, ctl, r, consts)
     got = A.arena_step(phys, ctl, r, params, teams)
     torch.cuda.synchronize()
     err = compare(f"{label}_end_state", got, work.out, 1)
     raw, nbytes = raw_kernel(A._library(), phys, ctl, r, params, teams)
     ms = cuda_ms(raw, reps=10, warmup=2)
+    plain_ms = cuda_ms(lambda: ctick.arena_step_reference(phys, ctl, r,
+                                                          consts),
+                       reps=1, warmup=0)
     bound_ms, bound_by, bytes_ms, ops_ms = bound(nbytes, work.ops_needed)
-    print(f"[{label}] kernel {ms:.4f} ms/env step (E={n}, C={P}); bound "
-          f"{bound_ms:.5f} ms by {bound_by} ({nbytes} bytes -> "
-          f"{bytes_ms:.5f} ms, {work.ops_needed:.4g} fp32 ops these inputs "
-          f"need -> {ops_ms:.5f} ms); card {card}")
-    return ms, bound_ms, bound_by, err
+    print(f"[{label}] kernel {ms:.4f} ms/env step (E={n}, C={P}); plain "
+          f"version {plain_ms:.2f} ms; bound {bound_ms:.5f} ms by "
+          f"{bound_by} ({nbytes} bytes -> {bytes_ms:.5f} ms, "
+          f"{work.ops_needed:.4g} fp32 ops these inputs need -> "
+          f"{ops_ms:.5f} ms); card {card}")
+    return ms, bound_ms, bound_by, err, plain_ms
 
 
 def one_step_agrees(label, trainer, state, make_env, sub=32):
@@ -2512,6 +2544,266 @@ def parallel_path(card, first):
             "max_abs_err": entry["end_err"]}
 
 
+# ---------------------------------------------------------------------------
+# the parity instruments and the profilers: tools/ twins
+
+PARITY_T = 240
+# BallState::Matches (Ball.h:38): pos 0.8 uu, vel 0.4 uu/s, ang_vel 0.02
+MARGINS = dict(car_pos=0.8, car_vel=0.4, car_ang=0.02, ball_pos=0.8,
+               ball_vel=0.4)
+# PARITY.md's rows that are exact on both JAX engines: gated on both routes
+EXACT_ROWS = ("drive_forward", "drive_reverse", "steer_circle", "powerslide",
+              "boost_ground", "jump_short", "jump_held", "double_jump",
+              "ball_drop", "car_bump")
+# PARITY.md's battery table (the JAX engines, 240 ticks): xla pos, vel,
+# ang, kernel pos, vel; car columns, or ball columns (ang None)
+PARITY_MD = {
+    "drive_forward": (0.00, 0.00, 0.000, 0.00, 0.00),
+    "drive_reverse": (0.00, 0.00, 0.000, 0.00, 0.00),
+    "steer_circle": (0.00, 0.00, 0.000, 0.00, 0.00),
+    "powerslide": (0.00, 0.00, 0.000, 0.00, 0.00),
+    "boost_ground": (0.00, 0.00, 0.000, 0.00, 0.00),
+    "jump_short": (0.00, 0.00, 0.000, 0.00, 0.00),
+    "jump_held": (0.00, 0.00, 0.000, 0.00, 0.00),
+    "double_jump": (0.00, 0.01, 0.000, 0.00, 0.01),
+    "front_flip": (2.93, 11.38, 0.546, 2.52, 9.89),
+    "air_pitch": (0.45, 4.83, 0.197, 0.45, 4.82),
+    "air_yaw": (0.29, 5.62, 0.106, 0.29, 5.62),
+    "air_roll": (0.48, 10.12, 0.457, 1.01, 10.12),
+    "air_boost": (0.27, 3.91, 0.068, 0.27, 3.91),
+    "air_drift": (0.29, 5.56, 0.125, 0.29, 5.56),
+    "ball_drop": (0.00, 0.00, None, 0.00, 0.00),
+    "ball_bounce_spin": (0.19, 0.25, None, 0.19, 0.25),
+    "ball_roll": (0.07, 0.08, None, 0.07, 0.08),
+    "ball_wall": (0.24, 0.18, None, 0.24, 0.18),
+    "car_ball_hit": (0.85, 0.64, None, 8.92, 838.7),
+    "ball_ramp_wall": (0.36, 0.38, None, 21.9, 107.0),
+    "ball_corner": (24.18, 114.3, None, 10.0, 111.9),
+    "ball_goal_mouth": (1.14, 0.22, None, 1.14, 0.22),
+    "car_wall_ride": (0.07, 0.12, 0.016, 15.2, 11.7),
+    "car_on_ball": (5.74, 10.31, 0.108, 22.2, 14.8),
+    "car_bump": (0.00, 0.00, 0.000, 0.01, 0.06),
+    "car_demo": (144.5, 1222.0, 7.83, 15.8, 168.5),
+}
+# battery ticks at which the kernel is held against its plain version
+PARITY_CHECK_TICKS = (0, 60, 120, 180, 239)
+
+
+def battery_kernel(card, label, scs, ts):
+    """The kernel's launch shape of the battery (tick_skip 1, action delay
+    0): the scenarios ``scs`` of one signature as one arena axis, stepped
+    by the kernel through ``PARITY_T`` ticks; at ``PARITY_CHECK_TICKS`` the
+    kernel is held against the plain version on the same state and
+    controls to ``ops.ctick.DEFAULT_TOLERANCE`` with no flag differing.
+    At tick ``ts`` the plain run counts the work the inputs need (the
+    bound) and the kernel alone and the plain version are timed.  Returns
+    ms, plain_ms, bound_ms, bound_by and the deviation."""
+    import numpy as np
+    import torch
+    from reinforcement_learning_torch.device import tree_map
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.ops import ctick, opcount
+    from reinforcement_learning_torch.ops.ctick import DEFAULT_TOLERANCE
+    from reinforcement_learning_torch.physics.step import ArenaParams
+    from reinforcement_learning_torch.tools import parity
+    dev = torch.device("cuda")
+    n_cars = scs[0].n_cars
+    teams = tuple(c.team for c in scs[0].cars)
+    params = ArenaParams(num_cars=n_cars, use_mesh=True,
+                         dynamic_wheel_rays=True)
+    consts = A._consts(params, teams)
+    phys = tree_map(lambda *xs: torch.stack(xs),
+                    *[parity._scenario_phys(sc, params, dev) for sc in scs])
+    E = len(scs)
+    r = torch.zeros((E, n_cars), dtype=torch.int32, device=dev)
+    ctl_all = torch.as_tensor(np.stack([sc.controls for sc in scs], 1),
+                              device=dev)
+    err, out = 0.0, {}
+    for t in range(PARITY_T):
+        got = A.arena_step(phys, ctl_all[t], r, params, teams, 1, 0)
+        if t in PARITY_CHECK_TICKS:
+            if t == ts:
+                work = opcount.step_work(phys, ctl_all[t], r, consts, 1, 0)
+                want = work.out
+            else:
+                want = ctick.arena_step_reference(phys, ctl_all[t], r,
+                                                  consts, 1, 0)
+            torch.cuda.synchronize()
+            err = max(err, compare(f"{label}_t{t}", got, want, 0,
+                                   tolerance=DEFAULT_TOLERANCE))
+            if t == ts:
+                raw, nbytes = raw_kernel(A._library(), phys, ctl_all[t], r,
+                                         params, teams, 1, 0)
+                out["ms"] = cuda_ms(raw, reps=20, warmup=2)
+                out["plain_ms"] = cuda_ms(
+                    lambda: ctick.arena_step_reference(
+                        phys, ctl_all[t], r, consts, 1, 0), reps=1,
+                    warmup=0)
+                bound_ms, bound_by, bytes_ms, ops_ms = bound(
+                    nbytes, work.ops_needed)
+                out.update(bound_ms=bound_ms, bound_by=bound_by)
+                print(f"[{label}] kernel {out['ms']:.4f} ms/tick (E={E}, "
+                      f"C={n_cars}, tick_skip 1, at tick {t}); plain "
+                      f"version {out['plain_ms']:.2f} ms; bound "
+                      f"{bound_ms:.6f} ms by {bound_by} ({nbytes} bytes -> "
+                      f"{bytes_ms:.6f} ms, {work.ops_needed:.4g} fp32 ops "
+                      f"these inputs need -> {ops_ms:.6f} ms); card {card}")
+        phys = got
+    print(f"[{label}] kernel vs plain at ticks {list(PARITY_CHECK_TICKS)} of "
+          f"the battery: worst deviation {err:.3g} (tolerance "
+          f"{DEFAULT_TOLERANCE}, no flag differing)")
+    out["max_abs_err"] = err
+    return out
+
+
+def parity_row(route, name, e):
+    """One battery row beside PARITY.md's JAX figures."""
+    xp, xv, xa, kp, kv = PARITY_MD[name]
+    ball = xa is None
+    jax_route = "kernel" if route == "kernel" else "xla"
+    ref = (f"{kp:.2f} / {kv:.2f}" if route == "kernel" else
+           f"{xp:.2f} / {xv:.2f}" + ("" if ball else f" / {xa:.3f}"))
+    cols = ("ball pos / vel" if ball else
+            "car pos / vel" + ("" if route == "kernel" else " / ang"))
+    gate = "gated" if name in EXACT_ROWS else "printed"
+    print(f"[parity] {route:8s} {name:16s} car {e['car_pos']:8.3f} "
+          f"{e['car_vel']:8.3f} {e['car_ang']:7.4f} ball "
+          f"{e['ball_pos']:8.3f} {e['ball_vel']:8.3f} flags "
+          f"{','.join(e['flags']) or '-'}; PARITY.md JAX {jax_route} "
+          f"{cols}: {ref} ({gate})")
+
+
+def parity_path(card):
+    """The parity instruments on the card: the 26-scenario battery through
+    the reference oracle on the host, the kernel route (T=240) and the
+    portable engine, with the gate on PARITY.md's exact rows; the kernel
+    at the battery's launch shape against its plain version; one
+    teacher-forced run through the kernel.  Returns the two battery
+    groups' ``kernels`` entries."""
+    import torch
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.tools import (parity, parity_battery,
+                                                    parity_teacher)
+    import concurrent.futures
+    scs = parity_battery.scenarios(PARITY_T)
+    names = list(scs)
+
+    def oracle():
+        # a process of its own on the host, beside the card's work
+        t0 = time.perf_counter()
+        refs = parity.run_oracle([scs[n] for n in names])
+        return dict(zip(names, refs)), time.perf_counter() - t0
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    oracle_run = pool.submit(oracle)
+    groups = {}
+    for n in names:
+        groups.setdefault(scs[n].n_cars, []).append(n)
+    if sorted(groups) != [1, 2] or len(groups[2]) != 2:
+        fail(f"the battery's groups changed: {groups}")
+
+    # the kernel route: each group through parity.run_torch_kernel, the
+    # launch count set to 0 before and read after
+    traces, entries = {}, {}
+    for n_cars, group in sorted(groups.items()):
+        torch.cuda.synchronize()
+        A.arena_step.launches = 0
+        t0 = time.perf_counter()
+        out = parity.run_torch_kernel([scs[n] for n in group])
+        wall = time.perf_counter() - t0
+        launches = A.arena_step.launches
+        if launches != PARITY_T:
+            fail(f"parity: the kernel launched {launches} times in "
+                 f"{PARITY_T} ticks of the {n_cars}-car group")
+        traces.update(zip(group, out))
+        print(f"[parity] kernel route, {len(group)} scenarios x {n_cars} "
+              f"car(s) as one arena axis: {PARITY_T} ticks in {wall:.2f} s, "
+              f"launches {launches}; card {card}")
+        entries[n_cars] = {"launches": launches}
+    for n_cars, group in sorted(groups.items()):
+        entries[n_cars].update(battery_kernel(
+            card, f"parity_kernel_E{len(group)}_C{n_cars}",
+            [scs[n] for n in group], ts=120))
+
+    # the portable engine: the whole battery, no kernel launch
+    A.arena_step.launches = 0
+    t0 = time.perf_counter()
+    portable = parity.run_torch([scs[n] for n in names])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if A.arena_step.launches:
+        fail("parity: the portable route launched the kernel")
+    print(f"[parity] portable route, 26 scenarios in 2 arena axes: "
+          f"{PARITY_T} ticks in {wall:.1f} s "
+          f"({wall / (2 * PARITY_T) * 1e3:.1f} ms a tick of a group); "
+          f"card {card}")
+    refs, oracle_s = oracle_run.result()
+    pool.shutdown()
+    print(f"[parity] oracle {os.path.relpath(parity.ORACLE_BIN, ROOT)} on "
+          f"the host, beside the card's work: {len(names)} scenarios x "
+          f"{PARITY_T} ticks in {oracle_s:.1f} s")
+    kernel_errs = {n: parity_battery.errors(refs[n], traces[n])
+                   for n in names}
+    portable_errs = {n: parity_battery.errors(refs[n], tr)
+                     for n, tr in zip(names, portable)}
+
+    bad = []
+    for route, errs in (("kernel", kernel_errs),
+                        ("portable", portable_errs)):
+        for n in names:
+            parity_row(route, n, errs[n])
+            if n in EXACT_ROWS:
+                over = [k for k, m in MARGINS.items() if errs[n][k] > m]
+                if over or errs[n]["flags"]:
+                    bad.append((route, n, over, errs[n]["flags"]))
+    if bad:
+        fail(f"parity: PARITY.md's exact rows beyond the BallState::Matches "
+             f"margins {MARGINS}: {bad}")
+    print(f"[parity] PARITY.md's exact rows ({len(EXACT_ROWS)}) within "
+          f"{MARGINS} on both routes, no flag differing")
+
+    # the teacher-forced run through the kernel
+    A.arena_step.launches = 0
+    t0 = time.perf_counter()
+    worst = parity_teacher.run("front_flip", PARITY_T, quiet=True,
+                               backend="ctick")
+    torch.cuda.synchronize()
+    if A.arena_step.launches != PARITY_T - 1:
+        fail(f"parity_teacher: {A.arena_step.launches} kernel launches for "
+             f"{PARITY_T - 1} teacher-forced ticks")
+    print(f"[parity] teacher-forced front_flip --ctick: "
+          f"{A.arena_step.launches} launches in "
+          f"{time.perf_counter() - t0:.1f} s; worst single-tick "
+          + json.dumps({k: float(f"{v:.4g}") for k, v in worst.items()})
+          + f" (PARITY.md, JAX: car_ang 0.46); card {card}")
+    if not all(math.isfinite(v) for v in worst.values()):
+        fail("parity_teacher: non-finite errors")
+    return {f"E{len(groups[c])}_C{c}": entries[c] for c in sorted(groups)}
+
+
+def profile_path(card):
+    """The profilers' twins at the main path's width: profile_split at 1024
+    x 2v2 and profile_phys's kernel routes at 256, each line printed with
+    the card's name and power limit."""
+    import contextlib
+    import io
+    from reinforcement_learning_torch.tools import profile_phys, profile_split
+    for what, fn in (
+            ("profile_split 1024", lambda: profile_split.profile(1024)),
+            ("profile_phys 256 kernel kernel_mesh",
+             lambda: profile_phys.main(256, ("kernel", "kernel_mesh")))):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        for line in buf.getvalue().splitlines():
+            print(f"[profile] {line}; card {card}")
+        print(f"[profile] {what}: {time.perf_counter() - t0:.1f} s")
+        vals = [v for r in res.values()
+                for v in (r.values() if isinstance(r, dict) else [r])]
+        if not all(math.isfinite(v) and v > 0 for v in vals):
+            fail(f"profile: {what} gave {res}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2902,6 +3194,17 @@ def main():
     entries["parallel"] = parallel_path(card, first)
     print(f"[parallel] phase {time.perf_counter() - t0:.1f} s")
 
+    # 16. the parity instruments: the battery through the oracle, the
+    # kernel and the portable engine; the kernel at the battery's shape
+    t0 = time.perf_counter()
+    battery = parity_path(card)
+    print(f"[parity] phase {time.perf_counter() - t0:.1f} s")
+
+    # 17. the profilers: the main path's split, the physics probe --------
+    t0 = time.perf_counter()
+    profile_path(card)
+    print(f"[profile] phase {time.perf_counter() - t0:.1f} s")
+
     kernels = []
     for label, what, where in (
             ("plane", "soccar, plane arena", "pallas_step.py:126"),
@@ -2929,6 +3232,15 @@ def main():
         "source": "reinforcement_learning_torch/csrc/arena_step.cu",
         "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
         **entries["parallel"], "library_ms": None})
+    for key, what in (("E24_C1", "24 one-car scenarios"),
+                      ("E2_C2", "2 two-car scenarios")):
+        kernels.append({
+            "name": f"arena_step (soccar, full fidelity: the parity "
+                    f"battery, {what} as one arena axis, tick_skip 1, "
+                    f"action_delay 0)", "route": "cuda",
+            "source": "reinforcement_learning_torch/csrc/arena_step.cu",
+            "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
+            **battery[key], "library_ms": None})
     print(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -47,7 +47,10 @@ def test_the_port_has_its_modules():
                 "physics/box_box", "physics/mesh", "physics/arena_geom",
                 "physics/world", "physics/car", "physics/contacts",
                 "physics/ball_pred", "parallel/mesh",
-                "tools/bench_scaling"):
+                "tools/bench_scaling", "tools/parity", "tools/parity_battery",
+                "tools/parity_teacher", "tools/parity_debug",
+                "tools/parity_kdebug", "tools/profile_split",
+                "tools/profile_phys"):
         assert f"reinforcement_learning_torch/{mod}.py" in names, mod
     assert (ROOT / "reinforcement_learning_torch/csrc/arena_step.cu").exists()
     for src in ("mlp_infer.cpp", "bot_server.cpp"):
