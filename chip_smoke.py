@@ -179,6 +179,20 @@ def fail(msg: str):
     sys.exit(1)
 
 
+def zero_counters():
+    """Zero the port's tracer's counters (its spans stay off): what
+    follows counts from zero."""
+    from reinforcement_learning_torch.utils import tracing
+    tracing.reset()
+
+
+def counter(name: str) -> int:
+    """The tracer's counter ``name`` (``kernel.launches``,
+    ``shard.all_sum.calls``, ...) since ``zero_counters``."""
+    from reinforcement_learning_torch.utils import tracing
+    return tracing.summary()["counters"].get(name, 0)
+
+
 def flatten(obj, prefix=""):
     import dataclasses
     out = {}
@@ -917,7 +931,6 @@ def drive_path(label, env, params, card, gen, T_steps, record=False):
     import torch
     from reinforcement_learning_torch.learn.trainer import (Trainer,
                                                             TrainerConfig)
-    from reinforcement_learning_torch.ops import arena_step as A
     trainer = Trainer(env, bench_ppo_config(),
                       TrainerConfig(ts_per_itr=100_000, random_seed=SEED))
     if trainer.steps_per_itr != T:
@@ -939,12 +952,12 @@ def drive_path(label, env, params, card, gen, T_steps, record=False):
     if record:
         del env.step
     torch.cuda.synchronize()
-    A.arena_step.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     tstate, traj = trainer.collect(tstate, T_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = A.arena_step.launches
+    launches = counter("kernel.launches")
     if launches != T_steps:
         fail(f"{label}: arena_step launched {launches} times in {T_steps} "
              "env steps")
@@ -1100,7 +1113,6 @@ def train_path(card, gen):
     the seed) with the timed iterations' s/iteration."""
     import torch
     from bench_torch import bench_trainer
-    from reinforcement_learning_torch.ops import arena_step as A
     trainer = bench_trainer(E, "soccar", SEED)
     if trainer.steps_per_itr != T:
         fail(f"steps_per_itr {trainer.steps_per_itr} != {T}")
@@ -1115,13 +1127,13 @@ def train_path(card, gen):
     warm = time.perf_counter() - t0
     first = dp_result(trainer, state, metrics)
     iters = 3
-    A.arena_step.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     for _ in range(iters):
         state, metrics = trainer.train_iteration(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = A.arena_step.launches
+    launches = counter("kernel.launches")
     if launches != iters * T:
         fail(f"train: arena_step launched {launches} times in {iters} "
              f"iterations of {T} env steps")
@@ -1161,16 +1173,15 @@ def mode_path(label, mode, card, gen):
     entry."""
     import torch
     from bench_torch import bench_trainer
-    from reinforcement_learning_torch.ops import arena_step as A
     trainer = bench_trainer(E, mode, SEED)
     before = [p.detach().clone() for p in trainer.learner.parameters()]
     state = trainer.init(SEED)
-    A.arena_step.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     state, metrics = trainer.train_iteration(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = A.arena_step.launches
+    launches = counter("kernel.launches")
     if launches != T:
         fail(f"{label}: arena_step launched {launches} times in one "
              f"iteration of {T} env steps")
@@ -1219,7 +1230,6 @@ def portable_path(card, gen, played):
     from reinforcement_learning_torch.device import tree_map
     from reinforcement_learning_torch.envs.env import (EnvConfig,
                                                        RocketLeagueEnv)
-    from reinforcement_learning_torch.ops import arena_step as A
     from reinforcement_learning_torch.physics import step as stepmod
     dev = torch.device("cuda")
     env = RocketLeagueEnv(EnvConfig(num_envs=E, team_size=2,
@@ -1233,7 +1243,7 @@ def portable_path(card, gen, played):
     controls = env.action_parser.parse(actions)
     r = torch.randint(0, 4, (E, 8, CARS), generator=gen, device=dev,
                       dtype=torch.int32)
-    A.arena_step.launches = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _, out = env.step(played, actions)
@@ -1243,8 +1253,9 @@ def portable_path(card, gen, played):
     phys_ms = cuda_ms(lambda: stepmod.arena_step(
         played.phys, controls, env.teams_np, r, env.params), reps=2,
         warmup=0)
-    if A.arena_step.launches:
-        fail(f"portable: the kernel launched {A.arena_step.launches} times")
+    launches = counter("kernel.launches")
+    if launches:
+        fail(f"portable: the kernel launched {launches} times")
     if not bool(torch.isfinite(out.obs).all()):
         fail("portable: the observations hold NaN or inf")
     ops_tick, ops_step = _ops_per_step(env, played, actions, r)
@@ -1278,7 +1289,6 @@ def hoops_path(card, gen):
     kickoffs, and the ms and tensor ops of an env step."""
     import torch
     from bench_torch import bench_trainer
-    from reinforcement_learning_torch.ops import arena_step as A
     trainer = bench_trainer(E, "hoops", SEED)
     env = trainer.env
     if not env.portable or env.config.physics_backend != "auto":
@@ -1299,13 +1309,13 @@ def hoops_path(card, gen):
     timers.wrap(trainer, "collect", "collect")
     timers.wrap(trainer, "prepare", "values + GAE + Welford")
     timers.wrap(trainer.learner, "update", "update")
-    A.arena_step.launches = 0
+    zero_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, metrics = trainer.train_iteration(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = A.arena_step.launches
+    launches = counter("kernel.launches")
     del trainer.collect, trainer.prepare, trainer.learner.update
     if launches:
         fail(f"hoops: the kernel launched {launches} times")
@@ -1534,7 +1544,6 @@ def twin_path(card, gen):
     from reinforcement_learning_torch.learn.ppo import \
         _full_fp32_matmul as full_fp32_matmul
     from reinforcement_learning_torch.learn.trainer import Trainer
-    from reinforcement_learning_torch.ops import arena_step as A
     from reinforcement_learning_torch.utils import checkpoint as ckpt
     from reinforcement_learning_torch.utils.metrics import MetricSender
     from reinforcement_learning_torch.utils.report import Report
@@ -1629,7 +1638,7 @@ def twin_path(card, gen):
     before = [p.detach().clone() for p in trainer.learner.parameters()]
     timers.s.clear()
     n_matches = len(seen["matches"])
-    A.arena_step.launches = 0
+    zero_counters()
     per_iter = []
     t0 = time.perf_counter()
     for i in range(3):
@@ -1658,7 +1667,7 @@ def twin_path(card, gen):
                   f"version: team {int(teams[old][0])}'s rows weight 0, "
                   f"{int((w == 0).sum())} of {w.numel()} rows")
     wall = time.perf_counter() - t0
-    launches = A.arena_step.launches
+    launches = counter("kernel.launches")
     matches = len(seen["matches"]) - n_matches
     want = 3 * T2 + matches * tracker.steps_per_run
     if launches != want or matches != 3:
@@ -1765,12 +1774,12 @@ def twin_path(card, gen):
     e1, p1 = tr1.env.config.num_envs, tr1.env.config.cars_per_arena
     s1 = tr1.init(SEED)
     b1 = [p.detach().clone() for p in tr1.learner.parameters()]
-    A.arena_step.launches = 0
+    zero_counters()
     t = time.perf_counter()
     s1, m1 = tr1.train_iteration(s1)
     torch.cuda.synchronize()
     w1 = time.perf_counter() - t
-    l1 = A.arena_step.launches
+    l1 = counter("kernel.launches")
     if l1 != tr1.steps_per_itr:
         fail(f"train_1v1: arena_step launched {l1} times in one iteration "
              f"of {tr1.steps_per_itr} env steps")
@@ -2364,18 +2373,18 @@ def dp_rank(rank, world, backend, folder, card):
 
     def timed_iteration():
         nonlocal state
-        shard.reduced_bytes = shard.reductions = 0
+        zero_counters()
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, metrics = trainer.train_iteration(state)
         torch.cuda.synchronize()
         return metrics, time.perf_counter() - t0
-    A.arena_step.launches = 0
     metrics, first_s = timed_iteration()
-    res = {"launches": A.arena_step.launches,
+    res = {"launches": counter("kernel.launches"),
            **dp_result(trainer, state, metrics), "first_s": first_s,
-           "bytes": shard.reduced_bytes, "reductions": shard.reductions}
+           "bytes": counter("shard.all_sum.bytes"),
+           "reductions": counter("shard.all_sum.calls")}
     _, res["iter_s"] = timed_iteration()
 
     # the reset draw at the global width (kept block) vs the block's width
@@ -2681,7 +2690,6 @@ def parity_path(card):
     teacher-forced run through the kernel.  Returns the two battery
     groups' ``kernels`` entries."""
     import torch
-    from reinforcement_learning_torch.ops import arena_step as A
     from reinforcement_learning_torch.tools import (parity, parity_battery,
                                                     parity_teacher)
     import concurrent.futures
@@ -2706,11 +2714,11 @@ def parity_path(card):
     traces, entries = {}, {}
     for n_cars, group in sorted(groups.items()):
         torch.cuda.synchronize()
-        A.arena_step.launches = 0
+        zero_counters()
         t0 = time.perf_counter()
         out = parity.run_torch_kernel([scs[n] for n in group])
         wall = time.perf_counter() - t0
-        launches = A.arena_step.launches
+        launches = counter("kernel.launches")
         if launches != PARITY_T:
             fail(f"parity: the kernel launched {launches} times in "
                  f"{PARITY_T} ticks of the {n_cars}-car group")
@@ -2725,12 +2733,12 @@ def parity_path(card):
             [scs[n] for n in group], ts=120))
 
     # the portable engine: the whole battery, no kernel launch
-    A.arena_step.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     portable = parity.run_torch([scs[n] for n in names])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if A.arena_step.launches:
+    if counter("kernel.launches"):
         fail("parity: the portable route launched the kernel")
     print(f"[parity] portable route, 26 scenarios in 2 arena axes: "
           f"{PARITY_T} ticks in {wall:.1f} s "
@@ -2762,16 +2770,17 @@ def parity_path(card):
           f"{MARGINS} on both routes, no flag differing")
 
     # the teacher-forced run through the kernel
-    A.arena_step.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     worst = parity_teacher.run("front_flip", PARITY_T, quiet=True,
                                backend="ctick")
     torch.cuda.synchronize()
-    if A.arena_step.launches != PARITY_T - 1:
-        fail(f"parity_teacher: {A.arena_step.launches} kernel launches for "
+    launches = counter("kernel.launches")
+    if launches != PARITY_T - 1:
+        fail(f"parity_teacher: {launches} kernel launches for "
              f"{PARITY_T - 1} teacher-forced ticks")
     print(f"[parity] teacher-forced front_flip --ctick: "
-          f"{A.arena_step.launches} launches in "
+          f"{launches} launches in "
           f"{time.perf_counter() - t0:.1f} s; worst single-tick "
           + json.dumps({k: float(f"{v:.4g}") for k, v in worst.items()})
           + f" (PARITY.md, JAX: car_ang 0.46); card {card}")

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from reinforcement_learning_torch.utils import tracing
+
 
 class EnvShard:
     """Arenas ``[offset, offset + local_envs)`` of ``global_envs``.
@@ -27,8 +29,6 @@ class EnvShard:
         self.local_envs = global_envs if local_envs is None else local_envs
         self.groups = groups
         self.rank = rank
-        self.reduced_bytes = 0        # bytes all-reduced so far
-        self.reductions = 0
 
     @property
     def sharded(self) -> bool:
@@ -58,8 +58,8 @@ class EnvShard:
         for group in self.groups:
             dist.all_reduce(t, group=group)
         if self.groups:
-            self.reduced_bytes += t.numel() * t.element_size()
-            self.reductions += 1
+            tracing.count("shard.all_sum.calls")
+            tracing.count("shard.all_sum.bytes", t.numel() * t.element_size())
         return t
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,12 @@ configuration is code: the reward stack, the terminal conditions, the env
 and the PPO settings are built explicitly, then trained.
 
 Run on the card:
-    python -m reinforcement_learning_torch.examples.train_1v1 [iterations]
+    python -m reinforcement_learning_torch.examples.train_1v1 [iterations] \\
+        [--trace]
+
+``--trace`` turns the port's tracer on: each iteration's metrics then hold
+its timing block (``timing/<span>_ms``, ``count/<counter>``;
+``Trainer.train``).
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from reinforcement_learning_torch.envs.env import EnvConfig, RocketLeagueEnv
 from reinforcement_learning_torch.envs.rewards import WeightedReward
 from reinforcement_learning_torch.learn.ppo import PPOConfig
 from reinforcement_learning_torch.learn.trainer import Trainer, TrainerConfig
+from reinforcement_learning_torch.utils import tracing
 from reinforcement_learning_torch.utils.report import Report
 
 
@@ -63,6 +69,9 @@ def trainer_config() -> TrainerConfig:
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    if "--trace" in argv:
+        tracing.enable()
+        argv = [a for a in argv if a != "--trace"]
     iterations = int(argv[0]) if argv else 50
     env = make_env()
     trainer = Trainer(env, ppo_config(), trainer_config())

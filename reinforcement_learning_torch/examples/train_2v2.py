@@ -20,6 +20,10 @@ self-play (ExampleMain.cpp:289-612; the JAX package's
   * wandb metrics (or a JSONL file beside the checkpoints), a checkpoint
     every 10M steps with auto-resume, 'Q' to save and quit
     (Learner.cpp:145-161, 224-298, 1011-1048)
+  * ``--trace``: the port's tracer on, and each iteration's timing block
+    (``timing/<span>_ms`` of every span, ``count/<counter>``;
+    ``Trainer.train``) among the metrics, as the reference's Report prints
+    its timings (Learner.cpp:646-994)
 
 The JAX program's ``--backend=`` has no counterpart: the port steps its
 physics with one route per device, the CUDA kernel on the card and its
@@ -27,7 +31,7 @@ plain PyTorch version on the CPU.
 
 Run on the card:
     python -m reinforcement_learning_torch.examples.train_2v2 \\
-        [iterations] [--render] [--scale=1.5]
+        [iterations] [--render] [--scale=1.5] [--trace]
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from reinforcement_learning_torch.envs.rewards import WeightedReward
 from reinforcement_learning_torch.learn import selfplay as sp
 from reinforcement_learning_torch.learn.ppo import PPOConfig
 from reinforcement_learning_torch.learn.trainer import Trainer, TrainerConfig
+from reinforcement_learning_torch.utils import tracing
 from reinforcement_learning_torch.utils.keypress import KeyPressDetector
 from reinforcement_learning_torch.utils.metrics import MetricSender
 from reinforcement_learning_torch.utils.report import Report
@@ -225,6 +230,8 @@ def main(argv=None):
     for arg in argv:
         if arg == "--render":
             render_mode = True
+        elif arg == "--trace":
+            tracing.enable()
         elif arg.startswith("--scale="):
             scale = float(arg.split("=", 1)[1])
         elif arg.isdigit():

@@ -36,6 +36,7 @@ from reinforcement_learning_torch.device import resolve_device
 from reinforcement_learning_torch.envs.shard import EnvShard
 from reinforcement_learning_torch.learn.optim import OPTIMIZERS
 from reinforcement_learning_torch.models import mlp
+from reinforcement_learning_torch.utils import tracing
 
 ACTION_MIN_PROB = 1e-11
 ACTION_DISABLED_LOGIT = -1e10
@@ -231,12 +232,14 @@ class PPOLearner(nn.Module):
                                   action_masks)
 
     @torch.no_grad()
+    @tracing.traced("policy.sample")
     def sample_actions(self, obs, action_masks, generator=None, gumbel=None,
                        deterministic=False, params=None):
         """Returns (actions int64, log_probs) (PPOLearner.cpp:116-184).
         Sampling is ``argmax(log p + g)`` with Gumbel noise ``g``: given as
         ``gumbel`` (same shape as the probabilities), or drawn from
         ``generator``.  ``params``: as in ``policy_probs``."""
+        tracing.count("policy.rows", obs.shape[0])
         probs = self.policy_probs(obs, action_masks, params=params)
         logp_all = torch.log(probs)
         if deterministic:
@@ -253,6 +256,7 @@ class PPOLearner(nn.Module):
     @torch.no_grad()
     def values(self, obs, half=None):
         """Critic values; ``half`` overrides ``half_precision``."""
+        tracing.count("critic.rows", obs.shape[0])
         half = self._half(half)
         return self.critic(self._features(obs, half), half)[..., 0]
 
@@ -292,6 +296,7 @@ class PPOLearner(nn.Module):
         the row count, or the weight sum (at least 1); a data-parallel
         rank passes the whole minibatch's, so that its loss and metrics
         are its share of the minibatch's."""
+        tracing.count("update.rows", batch["obs"].shape[0])
         cfg = self.config
         w = batch.get("weight")
         if denom is None:
@@ -360,6 +365,7 @@ class PPOLearner(nn.Module):
         for p, g in zip(params, grads):
             p.add_(g * scale)
 
+    @tracing.traced("iter.update", device="device")
     def update(self, data: dict, generator: torch.Generator | None = None,
                perms: torch.Tensor | None = None, guiding=None,
                shard: EnvShard | None = None, players: int = 1) -> dict:
@@ -397,32 +403,35 @@ class PPOLearner(nn.Module):
         sums = None
         with _full_fp32_matmul():
             for epoch in range(cfg.epochs):
-                perm = (perms[epoch] if perms is not None else torch.randperm(
-                    total, generator=generator, device=self.device))
-                perm = perm[:used].to(self.device).reshape(num_batches,
-                                                           batch_size)
-                for idx in shard.local_rows(perm, players):
-                    batch = {k: v[idx] for k, v in data.items()}
-                    adv = batch["advantage"]
-                    first = torch.stack([torch.sum(adv)] + (
-                        [torch.sum(batch["weight"])] if weighted else []))
-                    first = shard.all_sum(first)
-                    mean = first[0] / batch_size
-                    var = shard.all_sum(torch.sum((adv - mean) ** 2)
-                                        .reshape(1))[0] / batch_size
-                    batch["advantage"] = (adv - mean) / (torch.sqrt(var)
-                                                         + 1e-8)
-                    denom = (torch.clamp(first[1], min=1.0) if weighted
-                             else batch_size)
-                    self.zero_grad()
-                    total_loss, aux = self.loss(batch, guiding, denom)
-                    total_loss.backward()
-                    if shard.sharded:
-                        _all_sum_grads(params, shard)
-                    for name in self._models():
-                        self._step_model(name)
-                    sums = aux if sums is None else {
-                        k: sums[k] + v for k, v in aux.items()}
+                with tracing.span("update.epoch"):
+                    perm = (perms[epoch] if perms is not None
+                            else torch.randperm(total, generator=generator,
+                                                device=self.device))
+                    perm = perm[:used].to(self.device).reshape(num_batches,
+                                                               batch_size)
+                    for idx in shard.local_rows(perm, players):
+                        batch = {k: v[idx] for k, v in data.items()}
+                        adv = batch["advantage"]
+                        first = torch.stack([torch.sum(adv)] + (
+                            [torch.sum(batch["weight"])] if weighted
+                            else []))
+                        first = shard.all_sum(first)
+                        mean = first[0] / batch_size
+                        var = shard.all_sum(torch.sum((adv - mean) ** 2)
+                                            .reshape(1))[0] / batch_size
+                        batch["advantage"] = (adv - mean) / (torch.sqrt(var)
+                                                             + 1e-8)
+                        denom = (torch.clamp(first[1], min=1.0) if weighted
+                                 else batch_size)
+                        self.zero_grad()
+                        total_loss, aux = self.loss(batch, guiding, denom)
+                        total_loss.backward()
+                        if shard.sharded:
+                            _all_sum_grads(params, shard)
+                        for name in self._models():
+                            self._step_model(name)
+                        sums = aux if sums is None else {
+                            k: sums[k] + v for k, v in aux.items()}
         n = cfg.epochs * num_batches
         reduced = shard.all_sum(torch.stack(list(sums.values())))
         return {k: v / n for k, v in zip(sums, reduced)}

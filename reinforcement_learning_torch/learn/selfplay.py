@@ -29,6 +29,7 @@ import torch
 
 from reinforcement_learning_torch.envs import state_setters, terminals
 from reinforcement_learning_torch.envs.env import EnvConfig, RocketLeagueEnv
+from reinforcement_learning_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,6 +209,7 @@ class SkillTracker:
             obs, masks = out.obs, out.action_mask
         return (states, obs, masks), new_goals, old_goals
 
+    @tracing.traced("match")
     def run_matches(self, learner, bank: VersionBank,
                     rng: np.random.RandomState):
         """Pick a version and a team, run, apply the ELO rule per goal.

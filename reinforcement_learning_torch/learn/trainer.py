@@ -36,6 +36,7 @@ from reinforcement_learning_torch.learn import gae as gaemod
 from reinforcement_learning_torch.learn import selfplay as sp
 from reinforcement_learning_torch.learn import welford
 from reinforcement_learning_torch.learn.ppo import PPOConfig, PPOLearner
+from reinforcement_learning_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +75,7 @@ class TrainState:
 
 
 class Trainer:
+    @tracing.traced("setup.trainer")
     def __init__(self, env: RocketLeagueEnv, ppo_config: PPOConfig,
                  config: TrainerConfig = TrainerConfig(),
                  learner: PPOLearner | None = None,
@@ -152,6 +154,7 @@ class Trainer:
         return obs
 
     @torch.no_grad()
+    @tracing.traced("iter.collect")
     def collect(self, state: TrainState, T: int | None = None,
                 opponent=None, old_team: int = 0):
         """Run ``T`` env steps (default ``steps_per_itr``).  Returns (state,
@@ -236,6 +239,7 @@ class Trainer:
              for k in sums], dtype=torch.float32, device=stacked.device)
         return dict(zip(sums, stacked / counts[:, None]))
 
+    @tracing.traced("iter.learn")
     def learn(self, state: TrainState, traj: dict, perms=None,
               weight=None):
         """The learning half of an iteration on a collected ``traj``
@@ -253,6 +257,7 @@ class Trainer:
             players=traj["action"].shape[2]), **metrics}
         return state, metrics
 
+    @tracing.traced("iter.prepare", device="env.device")
     def prepare(self, state: TrainState, traj: dict):
         """Values, GAE and the Welford updates of a collected ``traj``.
         Returns (state with the new statistics and counters, the update's
@@ -265,27 +270,30 @@ class Trainer:
         def flat(x):
             return x.reshape((T * N * P,) + tuple(x.shape[3:]))
 
-        v_obs = learner.values(flat(traj["obs"]), half=False)
-        v_final = learner.values(flat(traj["final_obs"]), half=False)
+        with tracing.span("prepare.values"):
+            v_obs = learner.values(flat(traj["obs"]), half=False)
+            v_final = learner.values(flat(traj["final_obs"]), half=False)
 
-        terminal_tb = traj["terminal"].repeat_interleave(P, dim=-1)
-        return_std = (state.return_stat.std if cfg.standardize_returns
-                      else torch.ones((), device=v_obs.device))
-        advs, target_values, returns, clip_portion = gaemod.compute_gae(
-            traj["reward"].reshape(T, N * P), terminal_tb,
-            v_obs.reshape(T, N * P), v_final.reshape(T, N * P),
-            gamma=self.ppo_config.gae_gamma, lam=self.ppo_config.gae_lambda,
-            return_std=return_std,
-            reward_clip_range=self.ppo_config.reward_clip_range,
-            all_sum=shard.all_sum)
+        with tracing.span("prepare.gae"):
+            terminal_tb = traj["terminal"].repeat_interleave(P, dim=-1)
+            return_std = (state.return_stat.std if cfg.standardize_returns
+                          else torch.ones((), device=v_obs.device))
+            advs, target_values, returns, clip_portion = gaemod.compute_gae(
+                traj["reward"].reshape(T, N * P), terminal_tb,
+                v_obs.reshape(T, N * P), v_final.reshape(T, N * P),
+                gamma=self.ppo_config.gae_gamma,
+                lam=self.ppo_config.gae_lambda, return_std=return_std,
+                reward_clip_range=self.ppo_config.reward_clip_range,
+                all_sum=shard.all_sum)
 
-        return_stat = welford.update_batch(state.return_stat,
-                                           returns.reshape(-1), shard.all_sum)
-        obs_stat = state.obs_stat
-        if cfg.standardize_obs:
-            obs_stat = welford.update_batch(
-                obs_stat, traj["obs"].reshape(-1, traj["obs"].shape[-1]),
-                shard.all_sum)
+        with tracing.span("prepare.welford"):
+            return_stat = welford.update_batch(
+                state.return_stat, returns.reshape(-1), shard.all_sum)
+            obs_stat = state.obs_stat
+            if cfg.standardize_obs:
+                obs_stat = welford.update_batch(
+                    obs_stat, traj["obs"].reshape(-1, traj["obs"].shape[-1]),
+                    shard.all_sum)
 
         data = dict(obs=flat(traj["obs"]), mask=flat(traj["mask"]),
                     action=flat(traj["action"]),
@@ -334,6 +342,7 @@ class Trainer:
         return self.learn(state, traj,
                           weight=weight.expand(T, N, P).reshape(-1))
 
+    @tracing.traced("iter")
     def train_iteration(self, state: TrainState):
         """One iteration, with the self-play host logic around its core
         (Learner.cpp:587-625 + versionMgr->OnIteration).  Returns (state,
@@ -403,6 +412,7 @@ class Trainer:
                 return restored
         return state
 
+    @tracing.traced("save")
     def save(self, state: TrainState) -> str | None:
         """Checkpoint now (Learner::Save, Learner.cpp:224-257); returns
         its folder, or None without a checkpoint folder.  Sharded, every
@@ -424,7 +434,9 @@ class Trainer:
         """Run iterations.  ``log_fn(iteration, metrics)`` gets the metrics
         as floats, the self-play metrics among them, with
         ``steps_per_second`` and ``iteration_time``, read after the device
-        has finished.  With a checkpoint folder, saves every
+        has finished; with the tracer's spans on (``utils.tracing``), also
+        its timing block (``timing_metrics``), and the tracer is cleared
+        after each iteration.  With a checkpoint folder, saves every
         ``ts_per_save`` collected steps and once at the end
         (Learner.cpp:1011-1015); ``stop_fn()`` True ends training after
         that final save (the reference's 'Q' save-and-quit,
@@ -447,7 +459,11 @@ class Trainer:
                 m["steps_per_second"] = (
                     self.steps_per_itr * self.players_per_step / dt)
                 m["iteration_time"] = dt
+                if tracing.enabled():
+                    m.update(timing_metrics())
                 log_fn(state.iterations, m)
+            if tracing.enabled():
+                tracing.reset()
             if (self.config.checkpoint_folder
                     and state.total_timesteps - last_save_ts
                     >= self.config.ts_per_save):
@@ -459,6 +475,25 @@ class Trainer:
         if self.config.checkpoint_folder:
             self.save(state)
         return state
+
+
+def timing_metrics() -> dict:
+    """The operator's timing block (GigaLearnCPP's Report timings,
+    Learner.cpp:646-994) from what the tracer holds: ``timing/<span>_ms``
+    for each span name, in device ms where the device timed it (the
+    preparation and the update on the card), else in host ms, and
+    ``count/<counter>`` for each counter.  ``Trainer.train`` clears the
+    tracer after each iteration, so the first iteration's block holds
+    set-up's spans and an iteration's holds the checkpoint saved after
+    the one before it.  The env step's spans count the skill match's
+    steps too, which ``timing/match_ms`` holds whole.  Read once the
+    device has finished."""
+    s = tracing.summary()
+    out = {f"timing/{name}_ms": v.get("device_ms", v["total_ms"])
+           for name, v in s["spans"].items()}
+    out.update({f"count/{name}": float(n)
+                for name, n in s["counters"].items()})
+    return out
 
 
 def _stack(values):

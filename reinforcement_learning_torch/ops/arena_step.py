@@ -39,6 +39,7 @@ from reinforcement_learning_torch.physics.car import WheelControlsState
 from reinforcement_learning_torch.physics.state import (ArenaState, BallState,
                                                         CarsState, PadsState)
 from reinforcement_learning_torch.physics.step import PhysicsState
+from reinforcement_learning_torch.utils import tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "arena_step.cu", CSRC / "cvec.cuh", CSRC / "facets.cuh")
@@ -116,12 +117,14 @@ def build(verbose: bool = False) -> tuple[Path, str]:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
                                f"{link.stdout}{link.stderr}")
         os.replace(so, out)
+    tracing.count("kernel.builds")
     return out, log + link.stdout + link.stderr
 
 
 @functools.lru_cache(maxsize=None)
 def _library(path: str | None = None):
-    lib = ctypes.CDLL(path or str(build()[0]))
+    with tracing.span("setup.kernel"):
+        lib = ctypes.CDLL(path or str(build()[0]))
     p = ctypes.c_void_p
     i = ctypes.c_int
     lib.arena_step_launch.argtypes = [p, i, p, p, p, p, p, p, p, p, i, i, i,
@@ -347,24 +350,27 @@ def _unpack(f, i, u, E: int, Cn: int) -> PhysicsState:
 def _launch(lib, phys, controls, respawn_idx, params, teams, tick_skip,
             action_delay, stream) -> PhysicsState:
     E, Cn = phys.arena.cars.boost.shape
-    f, i, u = _pack(phys)
-    ctl = controls.permute(2, 1, 0).contiguous()          # (8, C, E)
-    ridx = respawn_idx.transpose(0, 1).contiguous()       # (C, E)
-    f_out, i_out, u_out = (torch.empty_like(f), torch.empty_like(i),
-                           torch.empty_like(u))
-    prm = pack_params(params, teams)
+    with tracing.span("kernel.pack"):
+        f, i, u = _pack(phys)
+        ctl = controls.permute(2, 1, 0).contiguous()          # (8, C, E)
+        ridx = respawn_idx.transpose(0, 1).contiguous()       # (C, E)
+        f_out, i_out, u_out = (torch.empty_like(f), torch.empty_like(i),
+                               torch.empty_like(u))
+        prm = pack_params(params, teams)
     if prm.nbytes != lib.arena_step_params_bytes():
         raise RuntimeError(
             f"Params layout mismatch: {prm.nbytes} bytes packed, kernel "
             f"expects {lib.arena_step_params_bytes()}")
-    err = lib.arena_step_launch(
-        prm.ctypes.data, prm.nbytes, f.data_ptr(), i.data_ptr(),
-        u.data_ptr(), f_out.data_ptr(), i_out.data_ptr(), u_out.data_ptr(),
-        ctl.data_ptr(), ridx.data_ptr(), E, Cn, tick_skip, action_delay,
-        stream)
+    with tracing.span("kernel.launch"):
+        err = lib.arena_step_launch(
+            prm.ctypes.data, prm.nbytes, f.data_ptr(), i.data_ptr(),
+            u.data_ptr(), f_out.data_ptr(), i_out.data_ptr(),
+            u_out.data_ptr(), ctl.data_ptr(), ridx.data_ptr(), E, Cn,
+            tick_skip, action_delay, stream)
     if err != 0:
         raise RuntimeError(f"arena_step kernel launch failed: error {err}")
-    return _unpack(f_out, i_out, u_out, E, Cn)
+    with tracing.span("kernel.unpack"):
+        return _unpack(f_out, i_out, u_out, E, Cn)
 
 
 def arena_step(phys: PhysicsState, controls: torch.Tensor,
@@ -404,8 +410,5 @@ def arena_step(phys: PhysicsState, controls: torch.Tensor,
         out = _launch(_library(), phys, controls, respawn_idx, params, teams,
                       tick_skip, action_delay,
                       torch.cuda.current_stream().cuda_stream)
-    arena_step.launches += 1
+    tracing.count("kernel.launches")
     return out
-
-
-arena_step.launches = 0

@@ -39,6 +39,7 @@ import torch
 from reinforcement_learning_torch.ops import arena_step as arena_step_mod
 from reinforcement_learning_torch.ops import ctick as tctick
 from reinforcement_learning_torch.physics import step as tstep
+from reinforcement_learning_torch.utils import tracing
 
 torch.set_num_threads(1)
 
@@ -573,14 +574,14 @@ def test_cpu_tensors_take_the_plain_version(monkeypatch):
         calls.append(1)
         return real(*args, **kw)
     monkeypatch.setattr(tctick, "arena_step_reference", spy)
-    before = arena_step_mod.arena_step.launches
+    before = tracing.summary()["counters"].get("kernel.launches", 0)
     phys = tstep.make_physics_state(_params(), batch=(2,), device="cpu")
     out = arena_step_mod.arena_step(
         phys, torch.zeros(2, CARS, 8), torch.zeros(2, CARS,
                                                    dtype=torch.int32),
         _params(), TEAMS, tick_skip=2, action_delay=1)
     assert calls == [1]
-    assert arena_step_mod.arena_step.launches == before
+    assert tracing.summary()["counters"].get("kernel.launches", 0) == before
     assert torch.equal(out.arena.tick_count, torch.full((2,), 2,
                                                         dtype=torch.int32))
 
