@@ -155,7 +155,92 @@ def match_shortened():
         yield
 
 
+def _faulty_rank() -> bool:
+    """Whether this process is the data-parallel rank a rank's fault is
+    planted on (rank 1)."""
+    import torch.distributed as dist
+    return dist.is_initialized() and dist.get_rank() == FAULTY_RANK
+
+
+FAULTY_RANK = 1
+
+
+@contextlib.contextmanager
+def rank_skips_allreduce():
+    """One rank takes its part in the gradients' all-reduce but steps its
+    own local gradient."""
+    from reinforcement_learning_torch.learn import ppo
+    all_sum = ppo._all_sum_grads
+
+    def local(params, shard):
+        if not _faulty_rank():
+            return all_sum(params, shard)
+        shard.all_sum(torch.cat([p.grad.reshape(-1) for p in params]))
+    with _patched(ppo, "_all_sum_grads", local):
+        yield
+
+
+@contextlib.contextmanager
+def rank_keeps_neighbours_block():
+    """The last rank keeps the block before its own of every draw made at
+    the global width (reset states, respawn indices) and of the first
+    state."""
+    import torch.distributed as dist
+
+    from reinforcement_learning_torch.envs.shard import EnvShard
+    take = EnvShard.take
+
+    def neighbours(self, x):
+        if (self.whole or not dist.is_initialized()
+                or dist.get_rank() != dist.get_world_size() - 1):
+            return take(self, x)
+        return x[self.offset - self.local_envs:self.offset]
+    with _patched(EnvShard, "take", neighbours):
+        yield
+
+
+def _pad(x, steps: int):
+    """Each stacked tensor of ``x`` with fewer than ``steps`` steps padded
+    to ``steps`` with its last step."""
+    if isinstance(x, dict):
+        return {k: _pad(v, steps) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_pad(v, steps) for v in x)
+    if x.shape[0] >= steps:
+        return x
+    return torch.cat([x] + [x[-1:]] * (steps - x.shape[0]))
+
+
+@contextlib.contextmanager
+def rank_short_window():
+    """One rank stops each iteration's collection an env step early, its
+    last step's rows standing in for the step it left out (also in the
+    per-step sums it all-reduces, so that the ranks' collectives still
+    pair up)."""
+    from reinforcement_learning_torch.learn.trainer import Trainer
+    collect, means = Trainer.collect, Trainer._component_means
+
+    def short(self, state, T=None, **kw):
+        T = self.steps_per_itr if T is None else T
+        if not _faulty_rank() or T < 2:
+            return collect(self, state, T, **kw)
+        self._fault_steps = T
+        try:
+            state, traj = collect(self, state, T - 1, **kw)
+        finally:
+            del self._fault_steps
+        return state, _pad(traj, T)
+
+    def padded(self, sums, last):
+        steps = getattr(self, "_fault_steps", 0)
+        return means(self, _pad(sums, steps), last)
+    with _patched(Trainer, "collect", short), \
+            _patched(Trainer, "_component_means", padded):
+        yield
+
+
 FAULTS = {f.__name__: f for f in (
     unchanged_state, half_batch, physics_unchanged, physics_altered,
     reward_altered, logp_altered, values_bf16, return_stat_unchanged,
-    elo_altered, match_shortened)}
+    elo_altered, match_shortened, rank_skips_allreduce, rank_short_window,
+    rank_keeps_neighbours_block)}

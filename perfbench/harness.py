@@ -121,7 +121,7 @@ def make_weights(config: dict, seed: int, device) -> dict:
 
 
 def card() -> str:
-    """The card's name and power limit, as nvidia-smi reads them."""
+    """Each card's name and power limit, as nvidia-smi reads them."""
     try:
         out = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,7 +129,7 @@ def card() -> str:
             timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"nvidia-smi: {e}"
-    return out.splitlines()[0] if out else "nvidia-smi: no output"
+    return "; ".join(out.splitlines()) if out else "nvidia-smi: no output"
 
 
 def sync(device):
@@ -166,12 +166,15 @@ def _end_match(trainer, full_steps: int):
         False, None, 0)
 
 
-def setup(trainer, probe, weights, device) -> tuple:
+def setup(trainer, probe, weights, device, place=None) -> tuple:
     """Hand the trainer the benchmark's weights, then drive it through
     the captured iterations (a short skill match in the last where the
-    cell plays them).  Returns (state, capture)."""
+    cell plays them).  ``place(state)``: the first state put where it
+    runs (a data-parallel rank's block).  Returns (state, capture)."""
     trainer.learner.load_state_dict(weights, strict=True)
     state = trainer.init()
+    if place is not None:
+        state = place(state)
     with probe.capturing(0) as cap:
         for i in range(CAPTURED_ITERATIONS):
             full = None
@@ -213,7 +216,9 @@ def window(trainer, probe, state, unit: int, seconds: float,
                 last_save = state.total_timesteps
             times.append(time.perf_counter() - t)
             failed += not ok
-        if time.perf_counter() - t0 >= seconds:
+        # rank 0's clock ends a data-parallel window on every rank
+        if trainer.env.shard.from_root(time.perf_counter() - t0 >= seconds,
+                                       device):
             break
     elapsed = time.perf_counter() - t0
     probe.phase = "after"
@@ -224,37 +229,41 @@ def window(trainer, probe, state, unit: int, seconds: float,
                 * trainer.steps_per_itr * trainer.players_per_step)
 
 
-def after_window(trainer, probe, state, seed: int, device) -> tuple:
+def after_window(trainer, probe, state, seed: int, device,
+                 record: bool = True) -> tuple:
     """One more iteration, captured with where it started from, so that
     the reference follows the timed path as the window left it; its env
-    step whose physics is recorded is drawn from the seed.  Returns
-    (state, capture)."""
+    step whose physics is recorded (unless not ``record``) is drawn from
+    the seed.  Returns (state, capture)."""
     step = probe.launches + random.Random(f"after {seed}").randint(
-        1, trainer.steps_per_itr)
+        1, trainer.steps_per_itr) if record else 0
     with probe.capturing(step, from_program=True) as cap:
         state, _ = iterate(trainer, state, device)
     return state, cap
 
 
-def traced(trainer, probe, state, config: dict, size, device) -> dict:
+def traced(trainer, probe, state, config: dict, size, device,
+           count: bool = True) -> dict:
     """The tensor ops of one env step under the frozen dispatch counter,
     then one iteration under ``torch.profiler`` (ending, where the cell
     plays skill matches, in a match of its steps over the iterations of a
     cycle, so that the traced mix is the cycle's), reduced; and the work
     of one of its kernel launches, counted by the frozen plain step on
-    that launch's inputs."""
+    that launch's inputs.  Without ``count`` (a data-parallel rank other
+    than 0, which runs the same calls) the trace's reduction alone."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from perfbench.reference.rlt.ops import opcount
 
     counter = opcount._Counter()
-    probe.count_ops = counter
+    probe.count_ops = counter if count else None
     trainer.collect(state, T=1)
     sync(device)
     ops_per_step = counter.calls
 
     counted = min(COUNTED_LAUNCH, trainer.steps_per_itr)
-    probe.launch_inputs = (probe.launches + counted, None)
+    if count:
+        probe.launch_inputs = (probe.launches + counted, None)
     full = None
     if size is not None:
         every = trainer.selfplay.skill.update_interval
@@ -271,6 +280,8 @@ def traced(trainer, probe, state, config: dict, size, device) -> dict:
     reduced = tracemod.reduce(prof, "perfbench.window", "arena_step",
                               program.SPANS)
     del prof
+    if not count:
+        return dict(trace=reduced)
     launch = probe.launch_inputs[1]
     probe.launch_inputs = None
     phys = check.rebuild(program.to_plain(launch["phys"]), device)
@@ -331,28 +342,72 @@ def load_kernel(device) -> None:
         arena_step._library()
 
 
+def replica(trainer) -> dict:
+    """The learner's parameters and optimiser states as CPU tensors by
+    name: what every rank of a data-parallel run holds alike."""
+    learner = trainer.learner
+    out = {f"param.{k}": v for k, v in learner.named_parameters()}
+    for name, (model, _) in learner._models().items():
+        opt = learner.optimizers[name]
+        for k, p in (model.named_parameters() if opt is not None else ()):
+            out.update({f"optim.{name}.{k}.{key}": v
+                        for key, v in opt.state[p].items()
+                        if isinstance(v, torch.Tensor)})
+    return program.to_plain(out)
+
+
+def all_sum_calls() -> int:
+    """The port's count of its all-reduces (``EnvShard.all_sum``), which
+    its tracer keeps with the spans off."""
+    from reinforcement_learning_torch.utils import tracing
+    return tracing.summary()["counters"].get("shard.all_sum.calls", 0)
+
+
 def run(workload: str, seed: int, seconds: float, trace: bool,
         device: str = "cuda", started: float | None = None,
-        shrink=None) -> dict:
+        shrink=None, mesh=None, gloo=None, control: bool = False):
     """One run; returns the result line's object.  ``started``: the
     process's start on ``time.perf_counter``'s clock.  ``shrink(config,
     cell)``: edits the configuration and cell in place (the CPU tests'
-    tiny sizes)."""
+    tiny sizes).  ``mesh``: this process is one rank of the cell's
+    data-parallel run on that device mesh (``perfbench/rank.py``), its
+    captures gathered to rank 0 over the process group ``gloo``; rank 0
+    returns the result, the others None.  ``control``: the result also
+    holds the control's numbers (``perfbench/readings.py``)."""
     started = time.perf_counter() if started is None else started
     bench, entry, cell, config = spec(workload)
     if shrink is not None:
         shrink(config, cell)
+    ranks = program.ranks(cell["traffic"])
+    if (mesh.size() if mesh is not None else 1) != ranks:
+        raise SystemExit(f"perfbench: {workload} runs on {ranks} ranks, "
+                         f"this run has {mesh.size() if mesh else 1}")
+    if mesh is not None:
+        config = program.global_config(config, ranks)
     phases = {"start": time.perf_counter() - started}
     load_kernel(device)
     phases["kernel"] = time.perf_counter() - started
     trainer = program.build(config, cell["traffic"], seed, device,
                             str(CHECKPOINTS / workload))
-    probe = program.Probe(trainer, spans=trace)
+    probe = program.Probe(trainer, spans=trace, draws=mesh is not None)
     weights = make_weights(config, seed, device)
     sync(device)
     phases["build"] = time.perf_counter() - started
-    state, cap = setup(trainer, probe, weights, device)
+    place = None
+    if mesh is not None:
+        from reinforcement_learning_torch.parallel import mesh as meshmod
+
+        def place(state):
+            return meshmod.shard_train_state(trainer, state, mesh)
+    state, cap = setup(trainer, probe, weights, device, place)
     sync(device)
+    shard = trainer.env.shard
+    root = shard.rank == 0
+    # the env steps compared with the reference: rank 0's and the last's
+    recorded = shard.rank in (0, ranks - 1)
+    if mesh is not None:
+        replicas = [replica(trainer)]
+        shard.from_root(True, device)   # every rank at the window's start
     setup_s = time.perf_counter() - started
     phases["iterations"] = setup_s
     print("perfbench: set-up reached (s): " + ", ".join(
@@ -368,25 +423,66 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     probe.spans.clear()
     probe.rows.clear()
     arm_match(probe, seed, size)
+    calls, arena_steps = all_sum_calls(), probe.arena_steps
     win = window(trainer, probe, state, unit, seconds, device)
+    calls, arena_steps = (all_sum_calls() - calls,
+                          probe.arena_steps - arena_steps)
     cuda = torch.device(device).type == "cuda"
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     spans = {k: list(v) for k, v in probe.spans.items()}
     rows = dict(probe.rows)
+    if mesh is not None:
+        replicas.append(replica(trainer))
     state, post = after_window(trainer, probe, win.pop("state"), seed,
-                               device)
+                               device, record=recorded)
     matches = list(probe.matches)
-    tr = (traced(trainer, probe, state, config, size, device) if trace
-          else None)
+    tr = (traced(trainer, probe, state, config, size, device, count=root)
+          if trace else None)
+    cars = trainer.env.config.cars_per_arena
     probe.remove()
     del trainer, probe, state
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
 
+    extra, count = {}, 1
+    if mesh is not None:
+        mine = dict(cap=cap, post=post, replicas=replicas, peak=peak,
+                    rows=rows, arena_steps=arena_steps, offset=shard.offset,
+                    busy=tr and (tr["trace"]["busy_s"],
+                                 tr["trace"]["window_s"]),
+                    allreduce=tr and tr["trace"]["allreduce_launches"])
+        parts = [None] * ranks if root else None
+        torch.distributed.gather_object(mine, parts, dst=0, group=gloo)
+        del mine
+        if not root:
+            return None
+        cap = check.gathered([r["cap"] for r in parts])
+        post = check.gathered([r["post"] for r in parts])
+        post["blocks"] = check.blocks([r["post"] for r in parts],
+                                      [r["offset"] for r in parts])
+        peak = max(r["peak"] for r in parts)
+        rows = {k: sum(r["rows"].get(k, 0) for r in parts) for k in rows}
+        steps = [r["arena_steps"] for r in parts]
+        win["player_steps"] = sum(steps) * cars
+        extra = {"replica_gap": check.replica_gap(
+                     [r["replicas"] for r in parts]),
+                 "rank_steps_off": check.rank_steps_off(steps)}
+        if trace:
+            busy = [r["busy"] for r in parts]
+            tr["trace"]["busy_s"] = sum(b for b, _ in busy) / ranks
+            tr["trace"]["window_s"] = sum(w for _, w in busy) / ranks
+            tr["allreduce_launches"] = [r["allreduce"] for r in parts]
+        count = ranks
+        del parts
+        gc.collect()
+
     expected = win["iterations"] // every if size is not None else 0
     numbers = check.numbers(config, weights, cap, post, matches, size,
-                            expected, device)
+                            expected, device,
+                            draw_envs=config["env"]["num_envs"]
+                            if mesh is not None else None)
+    numbers.update(extra)
     limits = cell["limits"]
     checks = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     correct = all(math.isfinite(c["value"]) and c["value"] <= c["limit"]
@@ -405,16 +501,20 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": (torch.cuda.get_device_name(0) if cuda
                             else "cpu"),
-                   "count": 1, "memory_peak_bytes": peak}
+                   "count": count, "memory_peak_bytes": peak}
     if trace:
         data = dict(spans=spans, rows=rows, window_s=win["seconds"],
-                    config=config, **tr)
+                    config=config, chips=count,
+                    all_sum_calls=calls / win["iterations"], **tr)
         result["metrics"] = read_metrics(bench, workload, data)
         device_info["busy_s"] = tr["trace"]["busy_s"]
         device_info["window_s"] = tr["trace"]["window_s"]
         result["breakdown"] = {"device_ops": tr["trace"]["device_ops"],
                                "idle_gaps": tr["trace"]["idle_gaps"]}
     result["device"] = device_info
+    if control:
+        result["control"] = check.control_numbers(config, weights, cap,
+                                                  post, matches, device)
     result["checks"] = checks
     return result
 
@@ -422,6 +522,27 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
 def loaded_forbidden() -> list:
     return sorted({name.split(".")[0] for name in sys.modules}
                   & set(FORBIDDEN))
+
+
+def report(result: dict) -> int:
+    """Print a run's result as the driver reads it: the cards on standard
+    error, then each number compared beside its limit as the last lines
+    there, and the result's line last on standard output.  Returns 1, and
+    prints no result, where this process has loaded JAX or the JAX
+    package."""
+    print(f"perfbench: {card()}", file=sys.stderr)
+    found = loaded_forbidden()
+    if found:
+        print(f"perfbench: loaded in this process: {found}",
+              file=sys.stderr)
+        return 1
+    if not result["correct"]:
+        print("perfbench: correct is false", file=sys.stderr)
+    for name, c in result["checks"].items():
+        print(f"check {name} {c['value']!r} limit {c['limit']!r}",
+              file=sys.stderr)
+    print(json.dumps(result), flush=True)
+    return 0
 
 
 def main(argv: list, started: float) -> int:
@@ -440,18 +561,9 @@ def main(argv: list, started: float) -> int:
         print(f"perfbench: {args.workload} needs {entry['chips']} devices, "
               f"{torch.cuda.device_count()} found", file=sys.stderr)
         return 1
+    if entry["chips"] > 1:
+        from perfbench import launch
+        return launch.main(args, entry["chips"], started)
     result = run(args.workload, args.seed, args.seconds, bool(args.trace),
                  "cuda", started)
-    print(f"perfbench: {card()}", file=sys.stderr)
-    found = loaded_forbidden()
-    if found:
-        print(f"perfbench: loaded in this process: {found}",
-              file=sys.stderr)
-        return 1
-    if not result["correct"]:
-        print("perfbench: correct is false", file=sys.stderr)
-    for name, c in result["checks"].items():
-        print(f"check {name} {c['value']!r} limit {c['limit']!r}",
-              file=sys.stderr)
-    print(json.dumps(result))
-    return 0
+    return report(result)

@@ -14,6 +14,7 @@ skill matches' ratings.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import importlib
 import time
@@ -63,7 +64,8 @@ ENV_KEYS = {"num_envs", "team_size", "tick_skip", "action_delay",
             "no_touch_timeout", "max_episode_seconds", "game_mode",
             "use_mesh", "dynamic_wheel_rays"}
 TRAFFIC_KEYS = {"skill_interval", "old_opponent_chance", "match_arenas",
-                "match_sim_seconds", "ts_per_save", "checkpoints_to_keep"}
+                "match_sim_seconds", "ts_per_save", "checkpoints_to_keep",
+                "ranks"}
 
 
 def check_keys(config: dict, traffic: dict):
@@ -75,6 +77,27 @@ def check_keys(config: dict, traffic: dict):
     if bad:
         raise SystemExit(f"perfbench: keys the benchmark does not know: "
                          f"{bad}")
+
+
+def ranks(traffic: dict) -> int:
+    """The processes of the cell's data-parallel run, one card each; 1
+    where the cell runs unsharded."""
+    return int(traffic.get("ranks", 1))
+
+
+def global_config(config: dict, ranks: int) -> dict:
+    """The configuration of a whole data-parallel run of ``ranks`` ranks,
+    from a file that states one rank's share (weak scaling): its arenas,
+    the trainer's and the learner's steps an iteration and the learner's
+    batch, each times ``ranks``, so that every rank keeps the file's env
+    steps an iteration and optimiser steps while the iteration holds
+    ``ranks`` times the rows."""
+    out = copy.deepcopy(config)
+    out["env"]["num_envs"] *= ranks
+    out["trainer"]["ts_per_itr"] *= ranks
+    for key in ("ts_per_itr", "batch_size"):
+        out["ppo"][key] *= ranks
+    return out
 
 
 def match_size(config: dict, traffic: dict):
@@ -204,9 +227,12 @@ class Probe:
     host-clock spans (``record_function`` annotations too, which a profiler
     sees) and the rows that each model pass takes; the ends of ``collect``
     and ``learn`` wait for the device, so that the two add up to the
-    iteration.  ``phase`` (set by the harness) labels each match."""
+    iteration.  ``phase`` (set by the harness) labels each match.
+    ``draws``: the recorded env step also keeps the env's generator state
+    before its respawn draw (a data-parallel rank's, whose block of the
+    draw is checked)."""
 
-    def __init__(self, trainer, spans: bool):
+    def __init__(self, trainer, spans: bool, draws: bool = False):
         from reinforcement_learning_torch.envs import env as envmod
         self.trainer = trainer
         self.spans = defaultdict(list)
@@ -218,12 +244,15 @@ class Probe:
         self.match_capture = None  # a dict while a match step is awaited
         self.count_ops = None      # a counter for the next env step
         self.launches = 0          # the training's kernel launches
+        self.arena_steps = 0       # and the arenas they stepped, summed
         self.launch_inputs = None  # (launch number, inputs) to record
         self._saved = []
         t, env, learner = trainer, trainer.env, trainer.learner
         sync = self.sync = env.device.type == "cuda"
         self._wrap(envmod, "arena_step", self._arena_step)
         self._wrap(env, "post_physics", self._post_physics)
+        if draws:
+            self._wrap(env, "physics_step", self._physics_step)
         self._wrap(learner, "update", self._update)
         self._wrap(learner, "loss", self._loss)
         self._wrap(learner, "_step_model", self._step_model)
@@ -376,6 +405,7 @@ class Probe:
                     record = self.match_capture
             else:
                 self.launches += 1
+                self.arena_steps += controls.shape[0]
                 cap = self.capture
                 if cap is not None and self.launches == cap["physics_step"]:
                     record = cap
@@ -389,6 +419,16 @@ class Probe:
                     phys=to_plain(phys), controls=to_plain(controls),
                     respawn_idx=to_plain(respawn_idx), out=to_plain(out))
             return out
+        return wrapper
+
+    def _physics_step(self, orig):
+        env = orig.__self__
+
+        def wrapper(state, controls):
+            cap = self.capture
+            if cap is not None and self.launches + 1 == cap["physics_step"]:
+                cap["respawn_generator"] = env.generator.get_state()
+            return orig(state, controls)
         return wrapper
 
     def _post_physics(self, orig):

@@ -12,7 +12,9 @@ iterations, a window of one iteration (ending in the cell's full skill
 match where it plays them) and the iteration after it; for each fault of
 ``perfbench/faults.py`` and each of its seeds, the same with the fault
 planted.  Nothing is timed.  One JSON line per
-reading on standard output.  The benchmark's own runs never run this.
+reading on standard output.  A cell on more than one card runs its seeds
+in its ranks, one process a card (``sharded``).  The benchmark's own runs
+never run this.
 """
 
 from __future__ import annotations
@@ -77,6 +79,54 @@ def reading(workload: str, seed: int, device: str, fault=None,
     return out
 
 
+SECONDS_A_SEED = 150.0   # the ranks' timeout grows by this a seed
+
+
+def sharded(workload: str, chips: int, seeds: list, fault_names: list,
+            fault_seeds: list, window: float) -> int:
+    """The readings of a data-parallel cell: its ranks
+    (``perfbench/rank.py``) run the seeds in one process each, rank 0
+    gathering every rank's captures and following them with the
+    reference (and the control); then each fault, planted in every rank,
+    on its seeds.  Prints the same lines as ``reading``."""
+    from perfbench import harness, launch
+
+    harness.load_kernel("cuda")   # built once, before any rank loads it
+    runs = [("", seeds, True)] + [(f, fault_seeds, False)
+                                  for f in fault_names]
+    rc = 0
+    for fault, these, control in runs:
+        if not these:
+            continue
+        args = ["--workload", workload,
+                "--seeds", ",".join(map(str, these)),
+                "--seconds", repr(window), "--trace", "0",
+                "--launched-at", repr(time.time())]
+        args += ["--fault", fault] if fault else []
+        args += ["--control"] if control else []
+        ok, codes, outs, errs, why = launch.run_ranks(
+            chips, args, SECONDS_A_SEED * (len(these) + 1))
+        for line in outs[0].splitlines():
+            if not line.startswith("{"):
+                continue
+            r = json.loads(line)
+            out = {"workload": workload, "seed": r["seed"],
+                   "fault": r["fault"], "setup_s": r["metrics"].get(
+                       "setup_s", {}).get("value"),
+                   "iterations": r["attempted"],
+                   "numbers": {k: c["value"]
+                               for k, c in r["checks"].items()}}
+            if "control" in r:
+                out["control"] = r["control"]
+            out["seconds"] = r["seconds"]
+            print(json.dumps(out), flush=True)
+        if not ok:
+            print(f"readings: {why}; exit codes {codes}; rank 0: "
+                  f"{errs[0][-launch.TAIL:]}", file=sys.stderr)
+            rc = 1
+    return rc
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="perfbench/readings.py")
     parser.add_argument("--workload", required=True)
@@ -95,6 +145,12 @@ def main(argv=None) -> int:
 
     def ints(s):
         return [int(x) for x in s.split(",") if x]
+    from perfbench import harness
+    chips = harness.spec(args.workload)[1]["chips"]
+    if chips > 1:
+        return sharded(args.workload, chips, ints(args.seeds),
+                       [f for f in args.faults.split(",") if f],
+                       ints(args.fault_seeds), args.window)
     for seed in ints(args.seeds):
         print(json.dumps(reading(args.workload, seed, "cuda", control=True,
                                  seconds=args.window)), flush=True)

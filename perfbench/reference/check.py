@@ -26,7 +26,7 @@ import torch
 
 from perfbench.reference import env as envmod
 from perfbench.reference.ppo import RefLearner, matmul_precision
-from perfbench.reference.rlt.envs import events
+from perfbench.reference.rlt.envs import events, terminals
 from perfbench.reference.rlt.learn import welford
 from perfbench.reference.rlt.ops import ctick
 from perfbench.reference.rlt.physics import state, step
@@ -101,11 +101,10 @@ def physics_off_share(ref: envmod.RefEnv, cap: dict) -> float:
     return float(off.float().mean())
 
 
-def env_off_share(ref: envmod.RefEnv, cap: dict) -> float:
-    """Share of the arenas whose post-physics outputs (observation before
-    and after the reset, reward, terminal, action mask, touch, goal)
-    differ from the reference's, the reset drawn from the program's
-    generator state."""
+def env_off_arenas(ref: envmod.RefEnv, cap: dict) -> torch.Tensor:
+    """The arenas whose post-physics outputs (observation before and after
+    the reset, reward, terminal, action mask, touch, goal) differ from the
+    reference's, the reset drawn from the program's generator state."""
     dev = ref.device
     ref.generator.set_state(cap["generator"])
     _, out = ref.post_physics(rebuild(cap["state"], dev),
@@ -120,7 +119,7 @@ def env_off_share(ref: envmod.RefEnv, cap: dict) -> float:
         a, g = getattr(out, k), got[k]
         if a is None or g is None:   # a skill match's env has no rewards
             if (a is None) != (g is None):
-                return 1.0
+                return torch.ones(n, dtype=torch.bool)
             continue
         a = a.cpu()
         if a.dtype.is_floating_point:
@@ -128,7 +127,30 @@ def env_off_share(ref: envmod.RefEnv, cap: dict) -> float:
         else:
             bad = g != a
         off |= bad.reshape(n, -1).any(-1)
-    return float(off.float().mean())
+    return off
+
+
+def env_off_share(ref: envmod.RefEnv, cap: dict) -> float:
+    """Share of the arenas of ``env_off_arenas``."""
+    return float(env_off_arenas(ref, cap).float().mean())
+
+
+def draw_off(ref: envmod.RefEnv, block: dict) -> int:
+    """Arenas of a data-parallel rank's block, at its recorded env step,
+    that did not keep the rank's own block of the draws made at the global
+    width: the respawn indices differ from the reference's draw for the
+    block (from the program's generator state before it), or the arena
+    reset and its post-physics outputs differ from the reference's (the
+    reset drawn at the global width, the block kept)."""
+    physics = block["physics"]
+    n = physics["controls"].shape[0]
+    ref.generator.set_state(block["respawn_generator"])
+    idx = ref.respawn_idx(n).cpu()
+    off = (idx != physics["respawn_idx"]).reshape(n, -1).any(-1)
+    post = block["post_physics"]
+    reset = post["out"]["terminal_type"] != terminals.NOT_TERMINAL
+    off |= reset & env_off_arenas(ref, post)
+    return int(off.sum())
 
 
 def learn_chain(config: dict, start: dict, iterations: list, device,
@@ -388,15 +410,24 @@ def _chains(config: dict, weights: dict, cap: dict, post: dict, device,
 
 
 def numbers(config: dict, weights: dict, cap: dict, post: dict,
-            matches: list, size, expected: int, device) -> dict:
+            matches: list, size, expected: int, device,
+            draw_envs: int | None = None) -> dict:
     """Every number of a run, program against reference.  ``cap``: the
     set-up's iterations; ``post``: the iteration after the window;
     ``matches``: every skill match; ``size``: the cell's match (env
-    steps, arenas), or None; ``expected``: matches the window owes."""
+    steps, arenas), or None; ``expected``: matches the window owes;
+    ``draw_envs``: a data-parallel run's global arenas, whose recorded env
+    steps are ``post["blocks"]`` (see ``blocks``), each compared with the
+    reference's draws for its block, which ``draw_off`` counts."""
     with matmul_precision(False):
-        ref = envmod.RefEnv(config, device)
-        physics = [physics_off_share(ref, post["physics"])]
-        env = [env_off_share(ref, post["post_physics"])]
+        physics, env, drawn = [], [], 0
+        for b in post.get("blocks") or [dict(offset=0, **post)]:
+            ref = envmod.RefEnv(config, device, draw_envs=draw_envs,
+                                offset=b["offset"])
+            physics.append(physics_off_share(ref, b["physics"]))
+            env.append(env_off_share(ref, b["post_physics"]))
+            if draw_envs is not None:
+                drawn += draw_off(ref, b)
         chain, chain_post, start = _chains(config, weights, cap, post,
                                            device)
         out = _worst(learn_numbers(program_side(cap), chain, weights),
@@ -416,6 +447,8 @@ def numbers(config: dict, weights: dict, cap: dict, post: dict,
                 logp.append(match_logp_gap(c, config, weights, device))
         out.update(physics_off=max(physics), env_off=max(env),
                    logp_gap=max(logp))
+        if draw_envs is not None:
+            out["draw_off"] = drawn
     return out
 
 
@@ -439,3 +472,65 @@ def control_numbers(config: dict, weights: dict, cap: dict, post: dict,
                  for m in matches if "capture" in m]
     out["logp_gap"] = max(logp)
     return out
+
+
+def gathered(caps: list) -> dict:
+    """One capture of a data-parallel run's iterations from every rank's
+    (in rank order): each iteration's rows over the global arenas (a
+    rank's block of arenas follows the one before), its losses summed (each
+    rank's is its rows' share of the global mean), and rank 0's of what
+    every rank holds alike (the first gradient, parameters, optimiser
+    states, return statistic and permutations, all after the all-reduces).
+    The env steps that ranks recorded are ``blocks``'."""
+    out = dict(caps[0])
+    its = []
+    for parts in zip(*(c["iterations"] for c in caps)):
+        it = dict(parts[0])
+        T = it["traj"]["action"].shape[0]
+        it["traj"] = {k: torch.cat([p["traj"][k] for p in parts], 1)
+                      for k in it["traj"]}
+        for k in ("advantage", "target_value", "weight"):
+            if it.get(k) is not None:
+                it[k] = torch.cat([p[k].reshape(T, -1) for p in parts],
+                                  1).reshape(-1)
+        it["losses"] = [sum(xs) for xs in zip(*(p["losses"]
+                                                for p in parts))]
+        its.append(it)
+    out["iterations"] = its
+    return out
+
+
+def blocks(posts: list, offsets: list) -> list:
+    """The env steps that a data-parallel run's ranks recorded (rank 0's
+    and the last's), each with the first arena of its rank's block: the
+    kernel's step, the post-physics and the generator's state before the
+    respawn draw."""
+    keys = ("physics", "post_physics", "respawn_generator")
+    return [dict(offset=at, **{k: p[k] for k in keys})
+            for p, at in zip(posts, offsets) if "physics" in p]
+
+
+def replica_gap(replicas: list) -> float:
+    """The largest difference between any rank's parameters and optimiser
+    states and rank 0's, at each point they were read (``replicas``: per
+    rank, a list of name -> tensor); inf where a name is missing or the
+    difference is not finite.  The ranks step the same all-reduced
+    gradients, so they hold the same bits: 0."""
+    gap = 0.0
+    for other in replicas[1:]:
+        if len(other) != len(replicas[0]):
+            return math.inf
+        for mine, root in zip(other, replicas[0]):
+            if mine.keys() != root.keys():
+                return math.inf
+            for k, a in root.items():
+                d = (mine[k].double() - a.double()).abs()
+                d[~torch.isfinite(d)] = math.inf
+                gap = max(gap, float(d.max()) if d.numel() else 0.0)
+    return gap
+
+
+def rank_steps_off(arena_steps: list) -> int:
+    """Ranks whose window stepped another count of env steps x arenas than
+    rank 0's."""
+    return sum(s != arena_steps[0] for s in arena_steps[1:])

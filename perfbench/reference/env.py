@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from perfbench.reference.rlt import constants as C
 from perfbench.reference.rlt.device import tree_map
 from perfbench.reference.rlt.envs import actions
 from perfbench.reference.rlt.envs import events as eventsmod
@@ -94,10 +95,15 @@ def env_spec(config: dict, match: bool = False) -> dict:
 
 class RefEnv:
     """The env of a configuration file on ``device`` (with ``match``, the
-    skill match's)."""
+    skill match's).  ``draw_envs``: the arenas every reset draw is made
+    for, of which the block from arena ``offset`` on is kept, as a
+    data-parallel rank draws at the global width and keeps its block (by
+    default the arenas stepped)."""
 
-    def __init__(self, config: dict, device, match: bool = False):
+    def __init__(self, config: dict, device, match: bool = False,
+                 draw_envs: int | None = None, offset: int = 0):
         envc = env_spec(config, match)
+        self.draw_envs, self.offset = draw_envs, offset
         self.device = torch.device(device)
         self.tick_skip = envc["tick_skip"]
         self.action_delay = envc["action_delay"]
@@ -136,11 +142,25 @@ class RefEnv:
                                           self.consts, self.tick_skip,
                                           self.action_delay)
 
+    def respawn_idx(self, N: int) -> torch.Tensor:
+        """The respawn-table draw of one env step for ``N`` arenas, each
+        car's, made as the reset draw is (the kernel's route: one a car an
+        env step)."""
+        drawn, at = max(self.draw_envs or N, N), self.offset
+        idx = torch.randint(0, C.CAR_RESPAWN_LOCATION_AMOUNT,
+                            (drawn, self.teams.shape[0]),
+                            generator=self.generator, device=self.device,
+                            dtype=torch.int32)
+        return idx[at:at + N]
+
     def _reset_states(self, N: int) -> EnvState:
         P = self.teams.shape[0]
         dev = self.device
-        phys = self.state_setter(self.generator, self.params, self.teams, N,
-                                 dev)
+        drawn, at = max(self.draw_envs or N, N), self.offset
+        phys = self.state_setter(self.generator, self.params, self.teams,
+                                 drawn, dev)
+        if drawn != N:
+            phys = tree_map(lambda x: x[at:at + N], phys)
         zi = lambda: torch.zeros(N, dtype=torch.int32, device=dev)  # noqa
         return EnvState(
             phys=phys, prev_arena=phys.arena,

@@ -33,3 +33,11 @@ def shrink(config, cell):
     if cell["traffic"].get("match_sim_seconds"):
         cell["traffic"]["match_sim_seconds"] = 0.2
         cell["traffic"]["skill_interval"] = 2
+
+
+def shrink_two_ranks(config, cell):
+    """``shrink`` for a data-parallel cell run on 2 ranks: 2 arenas each,
+    two env steps an iteration (so that a rank can stop one early)."""
+    shrink(config, cell)
+    config["trainer"]["ts_per_itr"] = 16
+    cell["traffic"]["ranks"] = 2

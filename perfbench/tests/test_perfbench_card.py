@@ -25,3 +25,30 @@ def test_control_fails_and_program_passes(card, workload):
                              shrink=small)
         assert all(v <= limits[k] for k, v in r["numbers"].items()), r
         assert any(v > limits[k] for k, v in r["control"].items()), r
+
+
+@pytest.mark.card
+def test_data_parallel_control_fails_and_program_passes(card):
+    """The same for the 4-card cell, its ranks at 64 arenas each."""
+    import json
+    import time
+
+    import torch
+
+    from perfbench import launch
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA cards")
+    workload = "bench-2v2.dp4"
+    limits = harness.spec(workload)[2]["limits"]
+    harness.load_kernel(card)   # built once, before the ranks load it
+    ok, codes, outs, errs, why = launch.run_ranks(4, [
+        "--workload", workload, "--seeds", "1,2,3", "--seconds", "0",
+        "--trace", "0", "--launched-at", repr(time.time()), "--control",
+        "--shrink", "perfbench.tests.test_perfbench_card:small"], 600.0)
+    assert ok, (why, codes, errs[0][-3000:])
+    results = [json.loads(line) for line in outs[0].splitlines()
+               if line.startswith("{")]
+    assert len(results) == 3
+    for r in results:
+        assert r["correct"], r["checks"]
+        assert any(v > limits[k] for k, v in r["control"].items()), r

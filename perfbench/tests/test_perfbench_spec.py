@@ -48,7 +48,10 @@ def test_workloads_and_metrics():
     configs = {c["name"] for c in BENCH["configs"]}
     cells = {w["name"] for w in BENCH["workloads"]}
     assert {w["config"] for w in BENCH["workloads"]} == configs
-    assert all(w["chips"] == 1 for w in BENCH["workloads"])
+    assert all(w["chips"] in (1, 4) for w in BENCH["workloads"])
+    # at most a quarter of the cells, rounded down, on 4 chips, or one
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(len(cells) // 4, 1)
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
     assert set(e2e) == {"player_steps_per_s", "setup_s"}
     assert all(m["source"] in ("host_clock", "device_trace")
@@ -72,6 +75,37 @@ def test_cell_and_config_load_by_name(workload):
     c = next(c for c in BENCH["configs"] if c["name"] == entry["config"])
     assert c["file"] == f"perfbench/configs/{c['name']}.json"
     assert config["reduced"] == c["reduced"]
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_ranks_are_the_chips(workload):
+    from perfbench import program
+    _, entry, cell, _ = harness.spec(workload)
+    assert program.ranks(cell["traffic"]) == entry["chips"]
+    if entry["chips"] > 1:
+        assert {"replica_gap", "rank_steps_off"} <= set(cell["limits"])
+        assert cell["limits"]["replica_gap"] == 0
+        assert cell["limits"]["rank_steps_off"] == 0
+
+
+def test_data_parallel_cell_scales_one_rank_by_the_ranks():
+    from perfbench import program
+    _, _, cell, config = harness.spec("bench-2v2.dp4")
+    _, _, _, one = harness.spec("bench-2v2.train")
+    assert config == one   # the configuration file states one rank's share
+    whole = program.global_config(config, program.ranks(cell["traffic"]))
+    assert whole["env"]["num_envs"] == 4096
+    assert whole["trainer"]["ts_per_itr"] == 400_000
+    assert (whole["ppo"]["ts_per_itr"], whole["ppo"]["batch_size"]) == (
+        200_000, 200_000)
+    # every rank keeps bench-2v2.train's 24 env steps an iteration and its
+    # one minibatch an epoch
+    players = whole["env"]["num_envs"] * 2 * whole["env"]["team_size"]
+    assert whole["trainer"]["ts_per_itr"] // players == 24
+    assert 24 * players // whole["ppo"]["batch_size"] == 1
+    assert config["env"]["num_envs"] == 1024   # the file is left as it was
+    for key in ("4096", "400000", "200000"):
+        assert key in cell["why"]
 
 
 def test_flops_hand_counts():

@@ -2,13 +2,14 @@
 read: the device's busy time (the union of its operations' intervals), the
 device operations that took most time, the idle gaps labelled by the
 benchmark's span that the host was inside, and the device time of each
-launch of a named kernel."""
+launch of a named kernel and of each NCCL all-reduce kernel, in order."""
 
 from __future__ import annotations
 
 from collections import defaultdict
 
 NAME_CHARS = 120   # a kernel's name in the breakdown, cut to this length
+ALLREDUCE = ("nccl", "allreduce")   # in an all-reduce kernel's lower name
 
 
 def _events(prof) -> list:
@@ -41,7 +42,7 @@ def reduce(prof, window: str, kernel: str, spans: tuple) -> dict:
                   if is_ann and not dev and name == window)
     device, annotations = [], []
     by_op = defaultdict(float)
-    launches = []
+    launches, allreduces = [], []
     for name, on_device, start, end, is_ann in events:
         if end <= lo or start >= hi:
             continue
@@ -50,6 +51,8 @@ def reduce(prof, window: str, kernel: str, spans: tuple) -> dict:
             by_op[name] += (end - start) / 1e9
             if kernel in name:
                 launches.append((start, (end - start) / 1e9))
+            if all(w in name.lower() for w in ALLREDUCE):
+                allreduces.append((start, (end - start) / 1e9))
         elif is_ann and not on_device and name in spans:
             annotations.append((start, end, name))
     merged = _merge(device)
@@ -74,4 +77,5 @@ def reduce(prof, window: str, kernel: str, spans: tuple) -> dict:
     return {"busy_s": busy, "window_s": (hi - lo) / 1e9,
             "device_ops": [[k, v] for k, v in top],
             "idle_gaps": [[k, v] for k, v in idle],
-            "kernel_launches": [d for _, d in sorted(launches)]}
+            "kernel_launches": [d for _, d in sorted(launches)],
+            "allreduce_launches": [d for _, d in sorted(allreduces)]}
