@@ -67,6 +67,16 @@ Phases, each of which must pass (nothing is caught):
    and resumed bit-equal into a fresh trainer through ``init_or_resume``,
    which trains one more iteration; then one iteration of the train_1v1
    twin (256 x 1v1) and the kernel on its end state (E=256, C=2);
+8b. [train_3v3], Standard 3v3 and the kernel's 6-car instantiation:
+   its ptxas resources and shared memory per block; ``train_3v3``'s env
+   at 512 x 3v3 stepped from kickoff for 300 env steps (even arenas
+   driving at the ball with boost, odd ones on random actions), the
+   kernel against the plain version at the kickoff, on the played state
+   and on it with three pairs of opposing cars driven into each other
+   (bumps and demos), with no flag, integer or event timer differing in
+   any arena, each timed with its bound, the plain version timed on the
+   played state alone; the launches and ``kernel.car_ticks`` counted; the
+   post-physics graph bit-equal to eager on the played state;
 9. [deploy], the trained policies into a match: the checkpoint step 8
    wrote (768 wide, leaky ReLU) into ``InferUnit`` on the card, its
    logits on 4,096 obs rows of a collection against the trainer's own
@@ -1797,6 +1807,180 @@ def twin_path(card, gen):
     return {**entry, "max_abs_err": err}, handoff
 
 
+THREE_V_THREE_E = 512
+THREE_V_THREE_STEPS = 300
+THREE_V_THREE_CHECKED = (0, THREE_V_THREE_STEPS - 1)
+
+
+def forward_or_random(env, gen):
+    """(E, P) action indices: forward with boost in the even arenas (the
+    cars meet at the ball: touches and car-car contacts), random in the
+    odd ones."""
+    import numpy as np
+    import torch
+    table = env.action_parser.table_np
+    forward = int(np.flatnonzero(
+        (table[:, 0] == 1) & (table[:, 1] == 0) & (table[:, 2] == 0)
+        & (table[:, 4] == 0) & (table[:, 5] == 0) & (table[:, 6] == 1)
+        & (table[:, 7] == 0))[0])
+    n, p = env.config.num_envs, env.config.cars_per_arena
+    idx = torch.randint(0, env.num_actions, (n, p), generator=gen,
+                        device=env.device)
+    idx[0::2] = forward
+    return idx
+
+
+def head_on_6(phys, gen):
+    """``phys`` with each blue car (0-2) driving into an orange one (3-5)
+    nearly head-on, hitboxes a few uu into each other, the even arenas'
+    drivers supersonic: car-car contacts, bumps and demos in every
+    arena."""
+    import torch
+    from reinforcement_learning_torch import maths
+    from reinforcement_learning_torch.device import tree_map
+    phys = tree_map(lambda t: t.clone(), phys)
+    cars = phys.arena.cars
+    n, dev = cars.pos.shape[0], cars.pos.device
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=gen, device=dev)
+    speed = torch.where(torch.arange(n, device=dev) % 2 == 0, 2250.0, 900.0)
+    z = torch.full((n,), 17.0, device=dev)
+    for att in range(3):
+        vic = att + 3
+        x0, y0 = u(-2200, -1800) + 1800.0 * att, u(-1500, 1500)
+        ya, yv = u(-0.15, 0.15), torch.pi + u(-0.15, 0.15)
+        cars.pos[:, att] = torch.stack([x0, y0, z], -1)
+        cars.pos[:, vic] = torch.stack([x0 + u(138, 144), y0 + u(-20, 20),
+                                        z], -1)
+        cars.vel[:, att] = torch.stack([speed * torch.cos(ya),
+                                        speed * torch.sin(ya), 0 * z], -1)
+        cars.vel[:, vic] = torch.stack([-300 + 0 * z, u(-100, 100), 0 * z],
+                                       -1)
+        cars.rot[:, att] = maths.euler_to_rotmat(ya)
+        cars.rot[:, vic] = maths.euler_to_rotmat(yv)
+        cars.ang_vel[:, att] = cars.ang_vel[:, vic] = 0.0
+        cars.is_supersonic[:, att] = speed > 2200.0
+        cars.is_demoed[:, att] = cars.is_demoed[:, vic] = False
+        cars.is_on_ground[:, att] = cars.is_on_ground[:, vic] = True
+    return phys
+
+
+def three_v_three_path(card, gen, log):
+    """[train_3v3]: Standard 3v3, the kernel's 6-car instantiation.  Its
+    ptxas resources and shared memory; ``train_3v3``'s env at 512 arenas
+    stepped from kickoff for 300 env steps, even arenas driving at the
+    ball with boost and odd ones on random actions; the kernel against the
+    plain step at the kickoff, on the played state (299) and on it with
+    the three pairs of opposing cars driven into each other
+    (``head_on_6``), each to ``ops.ctick``'s tolerances with no flag,
+    integer or event timer differing in any arena, the ball hits and the
+    bumps or demos counted (some of the first, half the arenas of the
+    second), the kernel and the bound timed, and the plain version on the
+    played state alone (about half a minute a call at E=512); the
+    post-physics graph against eager on the played state for 4 env steps,
+    bit for bit.  Returns the path's ``kernels`` entry (the played
+    state's)."""
+    import torch
+    from reinforcement_learning_torch.examples import train_3v3
+    from reinforcement_learning_torch.ops import arena_step as A
+    from reinforcement_learning_torch.ops import ctick, opcount
+    from reinforcement_learning_torch.utils import cuda_graph
+    label, n = "train_3v3", THREE_V_THREE_E
+    lib = A._library()
+    shape = A.launch_shape(lib, n, 6)
+    print(f"[{label}] 6-car kernel: {ptxas_resources(log, 6)}; "
+          f"arena_step_smem_6 {shape['shared_bytes_per_block']} bytes of "
+          f"shared memory per block (4 cars: "
+          f"{A.launch_shape(lib, n, 4)['shared_bytes_per_block']}), "
+          f"{shape['arenas_per_block']} arenas per block, "
+          f"{shape['blocks']} blocks at E={n}")
+    env = train_3v3.make_env(n, device="cuda")
+    if env.portable or env.config.cars_per_arena != 6 or env.obs_size != 225:
+        fail(f"{label}: portable {env.portable}, "
+             f"{env.config.cars_per_arena} cars, obs {env.obs_size}")
+    params, teams = env.params, tuple(int(t) for t in env.teams_np)
+    consts = A._consts(params, teams)
+    state, _, _ = env.reset(2147483723)
+    zero_counters()
+    entry = {}
+
+    def check(name, phys, ctl, timed=False):
+        """The kernel against the plain step on ``phys``, the plain step
+        timed where ``timed``; (touches, car-car contacts) in the plain
+        step's next state."""
+        r = torch.randint(0, 4, (n, 6), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        work = opcount.step_work(phys, ctl, r, consts)
+        got = A.arena_step(phys, ctl, r, params, teams)
+        torch.cuda.synchronize()
+        err = compare(name, got, work.out, 0)
+        a = work.out.arena
+        touched = int(a.cars.ball_hit_valid.any(-1).sum())
+        contact = int((a.step_bump | a.step_demo).any(-1).sum())
+        raw, nbytes = raw_kernel(lib, phys, ctl, r, params, teams)
+        ms = cuda_ms(raw, reps=10, warmup=2)
+        plain_ms = cuda_ms(lambda: ctick.arena_step_reference(
+            phys, ctl, r, consts), reps=1, warmup=0) if timed else None
+        bound_ms, bound_by, _, _ = bound(nbytes, work.ops_needed)
+        plain = "not timed" if plain_ms is None else f"{plain_ms:.2f} ms"
+        print(f"[{name}] kernel {ms:.4f} ms/env step (E={n}, C=6); "
+              f"plain version {plain}; bound {bound_ms:.5f} "
+              f"ms by {bound_by} ({nbytes} bytes, "
+              f"{work.ops_needed:.4g} fp32 ops); max dev {err:.3g}; "
+              f"arenas with a ball hit {touched}, with a bump or demo "
+              f"this step {contact}; card {card}")
+        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by,
+                     max_abs_err=max(entry.get("max_abs_err", 0.0), err))
+        return touched, contact
+
+    touched = 0
+    for step in range(THREE_V_THREE_STEPS):
+        idx = forward_or_random(env, gen)
+        ctl = env.action_parser.parse(idx)
+        if step in THREE_V_THREE_CHECKED:
+            touched += check(f"{label}_step{step}", state.phys, ctl,
+                             timed=step == THREE_V_THREE_STEPS - 1)[0]
+        state, _ = env.step(state, idx)
+    played = dict(entry)     # the kernels entry: the played state's
+    ctl = env.action_parser.parse(forward_or_random(env, gen))
+    contact = check(f"{label}_head_on", head_on_6(state.phys, gen), ctl)[1]
+    if touched == 0 or contact < n // 2:
+        fail(f"{label}: the compared states had {touched} arenas with a "
+             f"ball hit and {contact} of {n} with a bump or demo")
+    entry = played
+    torch.cuda.synchronize()
+    launches = counter("kernel.launches")
+    ticks = counter("kernel.car_ticks")
+    if launches != THREE_V_THREE_STEPS + len(THREE_V_THREE_CHECKED) + 1:
+        fail(f"{label}: {launches} kernel launches")
+    if ticks != launches * n * 6 * env.config.tick_skip:
+        fail(f"{label}: kernel.car_ticks {ticks} for {launches} launches")
+    print(f"[{label}] {launches} launches, kernel.car_ticks {ticks}; "
+          f"graph replays {counter('env.post.graph_replays')}")
+
+    def bits(t):
+        return t.view(torch.int32) if t.dtype == torch.float32 else t
+    for _ in range(4):
+        ctl = env.action_parser.parse(forward_or_random(env, gen))
+        phys = env.physics_step(state, ctl)
+        before = env.generator.get_state()
+        graphed = env.post_physics(state, phys, ctl)
+        env.generator.set_state(before)
+        eager = env._post_physics(state, phys, ctl)
+        lg, le = [], []
+        if cuda_graph.flatten(graphed, lg) != cuda_graph.flatten(eager, le):
+            fail(f"{label}: graphed and eager post-physics differ in form")
+        if not all(torch.equal(bits(a), bits(b)) for a, b in zip(lg, le)):
+            fail(f"{label}: graphed post-physics differs from eager")
+        state = graphed[0]
+    print(f"[{label}] post-physics graph against eager on the played "
+          f"state, 4 env steps: bit-equal ({len(lg)} tensors a step)")
+    entry["launches"] = launches
+    return entry
+
+
 def scripted_2v2(n_ticks):
     """``n_ticks`` game ticks (120 Hz) of a scripted 2v2 as bot-server
     packets: four cars circling on their own halves at different radii
@@ -3167,6 +3351,9 @@ def main():
 
     # 8. the canonical training program: train_2v2 and train_1v1 twins ---
     entries["train_2v2"], twin = twin_path(card, gen)
+    t0 = time.perf_counter()
+    entries["train_3v3"] = three_v_three_path(card, gen, log)
+    print(f"[train_3v3] phase {time.perf_counter() - t0:.1f} s")
 
     # 9. deployment: InferUnit, the C++ runtime, the bot server, the
     # converter ------------------------------------------------------------
@@ -3234,6 +3421,12 @@ def main():
         "source": "reinforcement_learning_torch/csrc/arena_step.cu",
         "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
         **entries["train_2v2"], "library_ms": None})
+    kernels.append({
+        "name": "arena_step (soccar, full fidelity: train_3v3, 512 x 3v3, "
+                "the 6-car kernel on the played state)", "route": "cuda",
+        "source": "reinforcement_learning_torch/csrc/arena_step.cu",
+        "replaces": "reinforcement_learning_tpu/ops/pallas_step.py:126",
+        **entries["train_3v3"], "library_ms": None})
     kernels.append({
         "name": "arena_step (soccar, full fidelity: the data-parallel main "
                 "path, one of 2 ranks sharing the card, 512 of 1024 "

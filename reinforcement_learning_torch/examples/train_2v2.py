@@ -64,10 +64,12 @@ CHECKPOINT_FOLDER = "checkpoints/train_2v2"
 # --- env factory (EnvCreateFunc, ExampleMain.cpp:128-226) ------------------
 
 def make_env(num_envs: int, render_mode: bool = False,
-             device=None) -> RocketLeagueEnv:
+             device=None, team_size: int = 2) -> RocketLeagueEnv:
+    """The example's env; ``team_size`` is ``playersPerTeam`` (3 in
+    ``train_3v3``), the rest is the same at any team size."""
     cfg = EnvConfig(
         num_envs=1 if render_mode else num_envs,
-        team_size=2,                      # playersPerTeam = 2
+        team_size=team_size,              # playersPerTeam
         tick_skip=8, action_delay=7,      # actionDelay = tickSkip - 1
         no_touch_timeout=8.0,
         max_episode_seconds=300.0,        # cfg.ppo.maxEpisodeDuration
@@ -222,8 +224,11 @@ def run_render(env: RocketLeagueEnv, trainer: Trainer, state=None,
         n += 1
 
 
-def main(argv=None):
+def main(argv=None, team_size: int = 2):
+    """Train at ``team_size`` a team (``train_3v3`` runs this at 3), with
+    checkpoints under ``checkpoints/train_<n>v<n>``."""
     argv = sys.argv[1:] if argv is None else argv
+    mode = f"{team_size}v{team_size}"
     iterations = 1_000_000
     render_mode = False
     scale = -1.0
@@ -237,7 +242,7 @@ def main(argv=None):
         elif arg.isdigit():
             iterations = int(arg)
 
-    env = make_env(NUM_GAMES, render_mode)
+    env = make_env(NUM_GAMES, render_mode, team_size=team_size)
     if scale <= 0:
         scale = auto_scale(NUM_GAMES)
     ppo = ppo_config(scale)
@@ -246,7 +251,7 @@ def main(argv=None):
     print(f"policy sizes: {list(ppo.policy_layers)}")
     print(f"critic sizes: {list(ppo.critic_layers)}")
 
-    cfg = trainer_config()
+    cfg = trainer_config(f"checkpoints/train_{mode}")
     trainer = Trainer(env, ppo, cfg, selfplay=selfplay_config(),
                       step_metrics_fn=step_metrics)
     print("param counts:", trainer.learner.param_counts())
@@ -259,7 +264,7 @@ def main(argv=None):
         return
 
     sender = MetricSender(project="Reinforcement Learning",
-                          group="Rocket League", run_name="torch-2v2",
+                          group="Rocket League", run_name=f"torch-{mode}",
                           fallback_path=os.path.join(cfg.checkpoint_folder,
                                                      "metrics.jsonl"))
     quit_key = KeyPressDetector("qQ")

@@ -411,4 +411,7 @@ def arena_step(phys: PhysicsState, controls: torch.Tensor,
                       tick_skip, action_delay,
                       torch.cuda.current_stream().cuda_stream)
     tracing.count("kernel.launches")
+    # the launch's work in car-ticks, the unit that differs between car
+    # counts
+    tracing.count("kernel.car_ticks", E * Cn * tick_skip)
     return out

@@ -4,13 +4,14 @@
 On the card (marked ``card``; skip without one; run them there with
 ``python -m pytest tests/test_torch_env_graph.py -q --noconftest``, as
 this repository's ``tests/conftest.py`` imports JAX): every env the
-programs step, 48 env steps each with the kernel's physics and auto-resets
-forced by a short no-touch timeout that each arena starts at another
-count, the graphed call against the eager one on the same inputs and
-generator state, bit for bit, and the generator's state after; what a
-call returned is not changed by the next; a re-seed after the capture
-draws what the eager path draws; ``Trainer.collect`` collects the same
-trajectories either way.
+programs step (the 3v3 example's and its skill match's at six cars among
+them), 48 env steps each with the kernel's physics and auto-resets forced
+by a short no-touch timeout that each arena starts at another count, the
+graphed call against the eager one on the same inputs and generator
+state, bit for bit, and the generator's state after; what a call returned
+is not changed by the next; a re-seed after the capture draws what the
+eager path draws; ``Trainer.collect`` collects the same trajectories
+either way.
 
 On the CPU: every call runs eagerly and counts as such, and post-physics
 builds no tensor from host data, which a graph could not replay.
@@ -26,7 +27,8 @@ import torch
 from reinforcement_learning_torch.envs import state_setters, terminals
 from reinforcement_learning_torch.envs.env import EnvConfig, RocketLeagueEnv
 from reinforcement_learning_torch.envs.shard import EnvShard
-from reinforcement_learning_torch.examples import train_1v1, train_2v2
+from reinforcement_learning_torch.examples import (train_1v1, train_2v2,
+                                                   train_3v3)
 from reinforcement_learning_torch.utils import cuda_graph, tracing
 
 STEPS = 48
@@ -73,20 +75,33 @@ def example_env(device, n=512):
                           _goal_and_timeout(env)[1])
 
 
+def three_v_three_env(device, n=512):
+    """train_3v3's env: six cars an arena, AdvancedObs 225, the 13-term
+    rewards at three a team, the score limit."""
+    env = train_3v3.make_env(n, device=device)
+    return _short_timeout(env, terminals.score_limit_condition(3),
+                          _goal_and_timeout(env)[1])
+
+
 def bench_env(device, n=1024):
     """The main path's env at bench shape: the default rewards."""
     env = RocketLeagueEnv(EnvConfig(num_envs=n, team_size=2, device=device))
     return _short_timeout(env, *_goal_and_timeout(env))
 
 
-def match_env(device, n=16):
+def match_env(device, n=16, team_size=2):
     """A skill match's env (``selfplay.SkillTracker``): no rewards, the
     goal terminal, the kickoff fuzzed by 0.1."""
     env = RocketLeagueEnv(
-        EnvConfig(num_envs=n, team_size=2, max_episode_seconds=1e9,
+        EnvConfig(num_envs=n, team_size=team_size, max_episode_seconds=1e9,
                   no_touch_timeout=1e9, device=device),
         reward_fns=[], state_setter=state_setters.kickoff_state(fuzz=0.1))
     return _short_timeout(env, terminals.goal_score_condition())
+
+
+def match_3v3_env(device, n=16):
+    """The 3v3 example's skill match: the 6-car kernel at 16 arenas."""
+    return match_env(device, n, team_size=3)
 
 
 def one_v_one_env(device, n=256):
@@ -174,7 +189,8 @@ def _compare_steps(env, state, steps: int, actions: torch.Generator):
 
 
 ENVS = {"example": example_env, "bench": bench_env, "match": match_env,
-        "1v1": one_v_one_env, "block": block_env}
+        "1v1": one_v_one_env, "block": block_env, "3v3": three_v_three_env,
+        "match3v3": match_3v3_env}
 
 
 @pytest.mark.card
@@ -224,7 +240,8 @@ def test_collect_graphed_equals_eager(card):
 
 CPU_ENVS = {"example": example_env, "match": match_env, "1v1": one_v_one_env,
             "block": block_env, "heatseeker": heatseeker_env,
-            "combined": combined_env}
+            "combined": combined_env, "3v3": three_v_three_env,
+            "match3v3": match_3v3_env}
 
 
 def _cpu_env(which):

@@ -41,6 +41,7 @@ def test_the_port_has_its_modules():
                 "envs/state_setters", "utils/checkpoint", "utils/metrics",
                 "utils/report", "utils/render", "utils/keypress",
                 "examples/train_2v2", "examples/train_1v1",
+                "examples/train_3v3",
                 "deploy/native", "deploy/infer", "deploy/bot_bridge",
                 "deploy/rlbot_agent", "deploy/rlbot_packet_agent",
                 "tools/checkpoint_converter", "physics/box_tri",
