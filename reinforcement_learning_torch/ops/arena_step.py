@@ -8,6 +8,13 @@ use by nvcc into ``build/torch_kernels/`` and bound with ctypes; on CPU
 tensors it runs the plain PyTorch version, ``ops.ctick``.  Nothing falls
 back: a CUDA tensor either reaches the kernel or raises.
 
+On the card the wrapper (pack, launch, unpack) is replayed from one CUDA
+graph per ``params``, ``teams``, ``tick_skip``, ``action_delay`` and the
+inputs' shapes (``utils/cuda_graph.py``, counters ``kernel.eager``,
+``kernel.graph_captures``, ``kernel.graph_replays``): the first call runs
+eagerly, the second captures, the later ones copy the inputs in, replay
+and hand back fresh outputs.
+
 The kernel reads struct-of-arrays buffers with the env axis innermost:
 ``f32 (72*C + 21 + 34, E)``, ``i32 (3*C + 1 + 34, E)``, ``u8 (19*C + 1 + 34,
 E)``; ``_pack`` and ``_unpack`` convert a batched ``PhysicsState`` to and
@@ -39,7 +46,7 @@ from reinforcement_learning_torch.physics.car import WheelControlsState
 from reinforcement_learning_torch.physics.state import (ArenaState, BallState,
                                                         CarsState, PadsState)
 from reinforcement_learning_torch.physics.step import PhysicsState
-from reinforcement_learning_torch.utils import tracing
+from reinforcement_learning_torch.utils import cuda_graph, tracing
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = (CSRC / "arena_step.cu", CSRC / "cvec.cuh", CSRC / "facets.cuh")
@@ -373,6 +380,27 @@ def _launch(lib, phys, controls, respawn_idx, params, teams, tick_skip,
         return _unpack(f_out, i_out, u_out, E, Cn)
 
 
+def _launch_current(phys, controls, respawn_idx, *, params, teams,
+                    tick_skip, action_delay) -> PhysicsState:
+    """``_launch`` of the built kernel on the stream current at the call,
+    which under a capture is the capture's own."""
+    return _launch(_library(), phys, controls, respawn_idx, params, teams,
+                   tick_skip, action_delay,
+                   torch.cuda.current_stream().cuda_stream)
+
+
+@functools.lru_cache(maxsize=32)
+def _graphed(device: torch.device, params, teams: tuple, tick_skip: int,
+             action_delay: int) -> cuda_graph.GraphedFn:
+    """The wrapper of one key on ``device``, replayed per shape.  The
+    captured launch holds ``Params``, packed from ``params`` and ``teams``,
+    by value, and ``tick_skip`` and ``action_delay``: hence the key."""
+    return cuda_graph.GraphedFn(
+        functools.partial(_launch_current, params=params, teams=teams,
+                          tick_skip=tick_skip, action_delay=action_delay),
+        "kernel", device)
+
+
 def arena_step(phys: PhysicsState, controls: torch.Tensor,
                respawn_idx: torch.Tensor, params, teams,
                tick_skip: int = 8, action_delay: int = 7) -> PhysicsState:
@@ -407,9 +435,8 @@ def arena_step(phys: PhysicsState, controls: torch.Tensor,
     if Cn not in SUPPORTED_CARS:
         raise ValueError(f"the kernel is built for {SUPPORTED_CARS} cars")
     with torch.cuda.device(dev):
-        out = _launch(_library(), phys, controls, respawn_idx, params, teams,
-                      tick_skip, action_delay,
-                      torch.cuda.current_stream().cuda_stream)
+        out = _graphed(dev, params, teams, tick_skip, action_delay)(
+            phys, controls, respawn_idx, key=None)
     tracing.count("kernel.launches")
     # the launch's work in car-ticks, the unit that differs between car
     # counts

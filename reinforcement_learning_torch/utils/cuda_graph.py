@@ -22,7 +22,8 @@ Python state at capture is baked into the graph.  Its random numbers come
 from ``generator``, which every graph registers: a replay draws what an
 eager call from the same generator state draws, and advances the state
 alike, so that ``manual_seed`` and ``set_state`` keep their meaning.  A
-failed capture raises.
+``fn`` that draws none takes no generator (``None``).  A failed capture
+raises.
 
 Counters (``utils/tracing.py``): ``<name>.eager``, ``<name>.graph_captures``,
 ``<name>.graph_replays``; a span ``<name>.replay`` around copy-in, replay
@@ -122,7 +123,8 @@ class GraphedFn:
     there (see the module's docstring); ``name`` prefixes its counters and
     span."""
 
-    def __init__(self, fn, name: str, device, generator: torch.Generator):
+    def __init__(self, fn, name: str, device,
+                 generator: torch.Generator | None = None):
         self.fn = fn
         self.name = name
         self.cuda = torch.device(device).type == "cuda"
@@ -168,7 +170,8 @@ class GraphedFn:
         args = unflatten(spec, iter(static))
         gen = self.generator
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(gen)
+        if gen is not None:
+            graph.register_generator_state(gen)
         side.wait_stream(main)
         # no collection in the middle of a capture: it could free another
         # graph's memory while this one records
@@ -176,9 +179,10 @@ class GraphedFn:
         gc.disable()
         try:
             with torch.cuda.stream(side):
-                before = gen.get_state()
+                before = gen.get_state() if gen is not None else None
                 self.fn(*args)                       # warm-up on the side
-                gen.set_state(before)
+                if gen is not None:
+                    gen.set_state(before)
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
                     out_leaves = []
