@@ -59,7 +59,6 @@ class EnvShard:
             dist.all_reduce(t, group=group)
         if self.groups:
             tracing.count("shard.all_sum.calls")
-            tracing.count("shard.all_sum.bytes", t.numel() * t.element_size())
         return t
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:

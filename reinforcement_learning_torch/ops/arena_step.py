@@ -438,7 +438,4 @@ def arena_step(phys: PhysicsState, controls: torch.Tensor,
         out = _graphed(dev, params, teams, tick_skip, action_delay)(
             phys, controls, respawn_idx, key=None)
     tracing.count("kernel.launches")
-    # the launch's work in car-ticks, the unit that differs between car
-    # counts
-    tracing.count("kernel.car_ticks", E * Cn * tick_skip)
     return out

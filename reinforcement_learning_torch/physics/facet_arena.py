@@ -936,8 +936,8 @@ def ray_facet_hits(ox, oy, oz, dx, dy, dz, max_len, tab: FacetTables = None,
 # or the ray cannot hit it: a lower bound of every row distance the item
 # can yield reaches the break gap.  CULL_SLACK covers the bound's rounding
 # against the rows' own arithmetic.  The plain queries do not use them; the
-# tests hold them against the live rows and hits, and chip_smoke.py reports
-# the share of items they skip.
+# tests hold them against the live rows and hits, and the card tests hold
+# the kernel that uses them against the plain step.
 
 CULL_SLACK = 1.0
 

@@ -1,17 +1,15 @@
 """Post-physics replayed from a CUDA graph (``RocketLeagueEnv.post_physics``,
 ``utils/cuda_graph.py``) against the same code run eagerly.
 
-On the card (marked ``card``; skip without one; run them there with
-``python -m pytest tests/test_torch_env_graph.py -q --noconftest``, as
-this repository's ``tests/conftest.py`` imports JAX): every env the
-programs step (the 3v3 example's and its skill match's at six cars among
-them), 48 env steps each with the kernel's physics and auto-resets forced
-by a short no-touch timeout that each arena starts at another count, the
-graphed call against the eager one on the same inputs and generator
-state, bit for bit, and the generator's state after; what a call returned
-is not changed by the next; a re-seed after the capture draws what the
-eager path draws; ``Trainer.collect`` collects the same trajectories
-either way.
+On the card (marked ``card``; skip without one; ``tests/torch_card.py``
+has the command): every env the programs step (the 3v3 example's and its
+skill match's at six cars among them), 48 env steps each with the kernel's
+physics and auto-resets forced by a short no-touch timeout that each arena
+starts at another count, the graphed call against the eager one on the
+same inputs and generator state, bit for bit, and the generator's state
+after; what a call returned is not changed by the next; a re-seed after
+the capture draws what the eager path draws; ``Trainer.collect`` collects
+the same trajectories either way.
 
 On the CPU: every call runs eagerly and counts as such, and post-physics
 builds no tensor from host data, which a graph could not replay.
@@ -24,24 +22,17 @@ import dataclasses
 import pytest
 import torch
 
-from reinforcement_learning_torch.envs import state_setters, terminals
+from reinforcement_learning_torch.envs import state_setters
 from reinforcement_learning_torch.envs.env import EnvConfig, RocketLeagueEnv
 from reinforcement_learning_torch.envs.shard import EnvShard
-from reinforcement_learning_torch.examples import (train_1v1, train_2v2,
-                                                   train_3v3)
+from reinforcement_learning_torch.examples import train_2v2
 from reinforcement_learning_torch.utils import cuda_graph, tracing
+from torch_card import (assert_same, bench_env, card, copy_tree,
+                        example_env, goal_and_timeout, heatseeker_env,
+                        match_env, one_v_one_env, short_timeout, staggered,
+                        three_v_three_env)
 
 STEPS = 48
-NO_TOUCH_STEPS = 12     # the forced auto-reset: 0.8 s without a touch
-
-
-@pytest.fixture
-def card():
-    """Skips the test where there is no CUDA card (decided here, at run
-    time, never at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return "cuda"
 
 
 @pytest.fixture(autouse=True)
@@ -51,62 +42,9 @@ def counters():
     tracing.reset()
 
 
-def _short_timeout(env, *others):
-    """``env`` with its no-touch timeout cut to ``NO_TOUCH_STEPS`` env
-    steps, beside its other terminal conditions ``others``."""
-    step_s = env.config.step_seconds
-    env.terminal_fn = terminals.combine_conditions(
-        [terminals.no_touch_condition(NO_TOUCH_STEPS * step_s, step_s)]
-        + list(others))
-    return env
-
-
-def _goal_and_timeout(env):
-    return (terminals.goal_score_condition(),
-            terminals.timeout_condition(env.config.max_episode_seconds,
-                                        env.config.step_seconds))
-
-
-def example_env(device, n=512):
-    """train_2v2's env: 2v2, AdvancedObs, the 13-term rewards, the score
-    limit."""
-    env = train_2v2.make_env(n, device=device)
-    return _short_timeout(env, terminals.score_limit_condition(3),
-                          _goal_and_timeout(env)[1])
-
-
-def three_v_three_env(device, n=512):
-    """train_3v3's env: six cars an arena, AdvancedObs 225, the 13-term
-    rewards at three a team, the score limit."""
-    env = train_3v3.make_env(n, device=device)
-    return _short_timeout(env, terminals.score_limit_condition(3),
-                          _goal_and_timeout(env)[1])
-
-
-def bench_env(device, n=1024):
-    """The main path's env at bench shape: the default rewards."""
-    env = RocketLeagueEnv(EnvConfig(num_envs=n, team_size=2, device=device))
-    return _short_timeout(env, *_goal_and_timeout(env))
-
-
-def match_env(device, n=16, team_size=2):
-    """A skill match's env (``selfplay.SkillTracker``): no rewards, the
-    goal terminal, the kickoff fuzzed by 0.1."""
-    env = RocketLeagueEnv(
-        EnvConfig(num_envs=n, team_size=team_size, max_episode_seconds=1e9,
-                  no_touch_timeout=1e9, device=device),
-        reward_fns=[], state_setter=state_setters.kickoff_state(fuzz=0.1))
-    return _short_timeout(env, terminals.goal_score_condition())
-
-
 def match_3v3_env(device, n=16):
     """The 3v3 example's skill match: the 6-car kernel at 16 arenas."""
     return match_env(device, n, team_size=3)
-
-
-def one_v_one_env(device, n=256):
-    env = train_1v1.make_env(n, device=device)
-    return _short_timeout(env, *_goal_and_timeout(env))
 
 
 def block_env(device, n=1024):
@@ -116,12 +54,6 @@ def block_env(device, n=1024):
     return env
 
 
-def heatseeker_env(device, n=2):
-    env = RocketLeagueEnv(EnvConfig(num_envs=n, team_size=2,
-                                    game_mode="heatseeker", device=device))
-    return _short_timeout(env, *_goal_and_timeout(env))
-
-
 def combined_env(device, n=2):
     """The kickoff or a random state, picked per arena."""
     env = RocketLeagueEnv(
@@ -129,35 +61,7 @@ def combined_env(device, n=2):
         state_setter=state_setters.combined_state(
             [(state_setters.kickoff_state(), 1.0),
              (state_setters.random_state(), 2.0)]))
-    return _short_timeout(env, *_goal_and_timeout(env))
-
-
-def _bits(t):
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
-
-
-def assert_same(got, want):
-    """Equal trees, every tensor leaf equal bit for bit."""
-    lg, lw = [], []
-    assert cuda_graph.flatten(got, lg) == cuda_graph.flatten(want, lw)
-    for a, b in zip(lg, lw):
-        assert (a.dtype, a.shape) == (b.dtype, b.shape)
-        assert torch.equal(_bits(a), _bits(b))
-
-
-def _copy(tree):
-    leaves = []
-    spec = cuda_graph.flatten(tree, leaves)
-    return cuda_graph.unflatten(spec, iter([t.clone() for t in leaves]))
-
-
-def _staggered(state):
-    """Each arena starts its no-touch count at another step, so that some
-    arenas reset on most steps and the others do not."""
-    n = state.steps_since_touch.shape[0]
-    start = torch.arange(n, device=state.steps_since_touch.device)
-    return dataclasses.replace(
-        state, steps_since_touch=(start % NO_TOUCH_STEPS).to(torch.int32))
+    return short_timeout(env, *goal_and_timeout(env))
 
 
 def _compare_steps(env, state, steps: int, actions: torch.Generator):
@@ -181,7 +85,7 @@ def _compare_steps(env, state, steps: int, actions: torch.Generator):
         assert_same(got, want)
         if kept is not None:       # the last call's outputs stay as they were
             assert_same(kept[0], kept[1])
-        kept = (got, _copy(got))
+        kept = (got, copy_tree(got))
         terminal = int((got[1].terminal_type != 0).sum())
         mixed += 0 < terminal < n
         state = got[0]
@@ -199,7 +103,7 @@ def test_graph_equals_eager_on_the_card(card, which):
     env = ENVS[which](card)
     actions = torch.Generator(device=card).manual_seed(5)
     state, _, _ = env.reset(2147483711)
-    state, mixed = _compare_steps(env, _staggered(state), STEPS,
+    state, mixed = _compare_steps(env, staggered(state), STEPS,
                                   actions)
     assert mixed >= STEPS // 2
     c = tracing.summary()["counters"]
@@ -207,7 +111,7 @@ def test_graph_equals_eager_on_the_card(card, which):
             c["env.post.graph_replays"]) == (1, 1, STEPS - 1)
     # a re-seed after the capture: the replay draws what eager draws
     state, _, _ = env.reset(17)
-    _compare_steps(env, _staggered(state), 4, actions)
+    _compare_steps(env, staggered(state), 4, actions)
     c = tracing.summary()["counters"]
     assert (c["env.post.eager"], c["env.post.graph_captures"],
             c["env.post.graph_replays"]) == (1, 1, STEPS + 3)
@@ -229,7 +133,7 @@ def test_collect_graphed_equals_eager(card):
             env.post_physics = env._post_physics
         state = trainer.init(3)
         state = dataclasses.replace(
-            state, env_states=_staggered(state.env_states))
+            state, env_states=staggered(state.env_states))
         state, traj = trainer.collect(state, T=16)
         trajs.append((state.env_states, state.obs, traj))
     assert_same(trajs[0], trajs[1])
@@ -253,9 +157,9 @@ def _cpu_env(which):
         state.steps_since_touch.shape[0], p, dtype=torch.int64))
     # the reset state stands in for the physics' next state, with a goal
     # in the first arena
-    phys = _copy(state.phys)
+    phys = copy_tree(state.phys)
     phys.arena.goal_scored[0] = True
-    return env, _staggered(state), phys, controls
+    return env, staggered(state), phys, controls
 
 
 def test_cpu_runs_every_call_eagerly():

@@ -1,6 +1,8 @@
 """The port stands alone: no module of it, and none of ``chip_smoke.py``,
-``kernel_variants.py`` and ``bench_torch.py``, imports JAX (or
-flax/optax), the JAX package or ``tools``."""
+``kernel_variants.py``, ``bench_torch.py`` and the card tests
+(``tests/torch_card.py``, ``tests/test_torch_card_*.py``), imports JAX (or
+flax/optax), the JAX package or ``tools``: the card's machine has no
+JAX."""
 
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "reinforcement_learning_tpu",
              "tools")
 FILES = sorted((ROOT / "reinforcement_learning_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "kernel_variants.py",
-    ROOT / "bench_torch.py"]
+    ROOT / "bench_torch.py", ROOT / "tests/torch_card.py"] + sorted(
+    (ROOT / "tests").glob("test_torch_card_*.py"))
 
 
 def _imported_roots(path: Path) -> set:

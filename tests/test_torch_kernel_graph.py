@@ -2,19 +2,17 @@
 from a CUDA graph (``utils/cuda_graph.py``) against the same wrapper run
 eagerly.
 
-On the card (marked ``card``; skip without one; run them there with
-``python -m pytest tests/test_torch_kernel_graph.py -q --noconftest``, as
-this repository's ``tests/conftest.py`` imports JAX): the envs the programs
-step (the example's at 4 and 6 cars, the main path's, a skill match's at
-16 arenas, 1v1), 48 env steps each of played states with auto-resets
-forced at staggered counts, ``arena_step`` against ``_launch`` on the same
-state, controls and respawn draws, every output leaf bit for bit; what a
-call returned is not changed by the next; the counters read one eager
-call, one capture and a replay for every later call, the capture's own
-included, per key; a training key and a match key interleave in one
-process; heatseeker's and snowday's params capture graphs of their own;
-``Trainer.train`` with a skill match replays every wrapper call but the
-first of each key.
+On the card (marked ``card``; skip without one; ``tests/torch_card.py``
+has the command): the envs the programs step (the example's at 4 and 6
+cars, the main path's, a skill match's at 16 arenas, 1v1), 48 env steps
+each of played states with auto-resets forced at staggered counts,
+``arena_step`` against ``_launch`` on the same state, controls and respawn
+draws, every output leaf bit for bit; what a call returned is not changed
+by the next; the counters read one eager call, one capture and a replay
+for every later call, the capture's own included, per key; a training key
+and a match key interleave in one process; heatseeker's and snowday's
+params capture graphs of their own; ``Trainer.train`` with a skill match
+replays every wrapper call but the first of each key.
 
 On the CPU: ``GraphedFn`` without a generator runs every call eagerly and
 counts it, and the wrapper builds no tensor from host data, which a graph
@@ -32,22 +30,12 @@ from reinforcement_learning_torch import constants as C
 from reinforcement_learning_torch.envs.env import EnvConfig, RocketLeagueEnv
 from reinforcement_learning_torch.ops import arena_step as A
 from reinforcement_learning_torch.utils import cuda_graph, tracing
-# the sibling test file, by the name pytest imports it under
-from test_torch_env_graph import (_copy, _goal_and_timeout, _short_timeout,
-                                  _staggered, assert_same, bench_env,
-                                  example_env, heatseeker_env, match_env,
-                                  one_v_one_env, three_v_three_env)
+from torch_card import (assert_same, bench_env, card, copy_tree,
+                        example_env, goal_and_timeout, heatseeker_env,
+                        match_env, one_v_one_env, short_timeout, staggered,
+                        three_v_three_env)
 
 STEPS = 48
-
-
-@pytest.fixture
-def card():
-    """Skips the test where there is no CUDA card (decided here, at run
-    time, never at import)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    return "cuda"
 
 
 @pytest.fixture(autouse=True)
@@ -63,7 +51,7 @@ def fresh():
 def snowday_env(device, n=2):
     env = RocketLeagueEnv(EnvConfig(num_envs=n, team_size=2,
                                     game_mode="snowday", device=device))
-    return _short_timeout(env, *_goal_and_timeout(env))
+    return short_timeout(env, *goal_and_timeout(env))
 
 
 def _teams(env) -> tuple:
@@ -89,7 +77,7 @@ class _Stepper:
         self.env = env
         self.gen = torch.Generator(device=env.device).manual_seed(seed)
         state, _, _ = env.reset(2147483711 + seed)
-        self.state = _staggered(state)
+        self.state = staggered(state)
         self.kept = None
         self.mixed = 0
 
@@ -106,7 +94,7 @@ class _Stepper:
         assert_same(got, want)
         if self.kept is not None:  # the last call's outputs stay as they were
             assert_same(self.kept[0], self.kept[1])
-        self.kept = (got, _copy(got))
+        self.kept = (got, copy_tree(got))
         self.state, out = env.post_physics(self.state, got, controls)
         n = out.terminal_type.shape[0]
         self.mixed += 0 < int((out.terminal_type != 0).sum()) < n

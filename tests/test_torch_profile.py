@@ -2,11 +2,14 @@
 profile_split.py and profile_phys.py, the twins of the JAX package's
 tools/profile_split.py and profile_phys.py): every printed field at a
 tiny width, the numbers they return, the backend table, and that they
-run on the card unless the CPU is asked for.  The timings themselves
-come from the card (chip_smoke.py's [profile] phase)."""
+run on the card unless the CPU is asked for.  On the card (marked
+``card``; ``tests/torch_card.py`` has the command) the main path's split
+at 1024 x 2v2 and the kernel routes at 256 give finite, positive numbers;
+the benchmark (``perfbench/run.py``) takes the timings that matter."""
 
 from __future__ import annotations
 
+import math
 import re
 
 import pytest
@@ -14,6 +17,7 @@ import torch
 
 from reinforcement_learning_torch.physics.step import ArenaParams
 from reinforcement_learning_torch.tools import profile_phys, profile_split
+from torch_card import card
 
 torch.set_num_threads(1)
 
@@ -125,3 +129,12 @@ def test_profilers_run_on_the_card_by_default(monkeypatch):
         profile_phys.main(1, ("planes",))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         profile_split.profile(2)
+
+
+@pytest.mark.card
+def test_profilers_on_the_card(card):
+    for res in (profile_split.profile(1024),
+                profile_phys.main(256, ("kernel", "kernel_mesh"))):
+        vals = [v for r in res.values()
+                for v in (r.values() if isinstance(r, dict) else [r])]
+        assert all(math.isfinite(v) and v > 0 for v in vals), res

@@ -8,6 +8,8 @@ the JAX package.
 ``iterate_job`` with a ``FileStore`` in ``folder`` (no TCP port, so parallel
 test workers cannot collide); ``finish(started, timeout)`` returns each
 rank's result, and kills them all if they outlast ``timeout`` seconds.
+The card test ``tests/test_torch_card_parallel.py`` starts ranks of
+``bench_iteration_job`` on the card the same way.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from bench_torch import bench_trainer
+from reinforcement_learning_torch.device import tree_map
 from reinforcement_learning_torch.envs.env import EnvConfig, RocketLeagueEnv
 from reinforcement_learning_torch.learn import welford
 from reinforcement_learning_torch.learn.ppo import PPOConfig, PPOLearner
@@ -28,6 +32,7 @@ from reinforcement_learning_torch.learn.trainer import Trainer, TrainerConfig
 from reinforcement_learning_torch.parallel import mesh as meshmod
 from reinforcement_learning_torch.physics import step as stepmod
 from reinforcement_learning_torch.utils import checkpoint as ckpt
+from reinforcement_learning_torch.utils import tracing
 
 # tests/test_sharding.py's configuration: 8 arenas x 1v1 at full fidelity,
 # 32-wide trio, batch 4096, one epoch, 64 player-steps (4 env steps) per
@@ -219,16 +224,57 @@ def _extra(rank, world, mesh, payload):
     return out
 
 
+def bench_iteration_job(rank, world, payload):
+    """One ``train_iteration`` of the main path at bench shape
+    (``bench_torch.bench_trainer``, seed ``payload["seed"]``) on this
+    rank's block of arenas, the kernel's launches counted; what the card
+    test holds against the unsharded run, and with ``payload["end"]`` the
+    kernel's and the plain version's next state from the rank's end state,
+    on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seed = payload["seed"]
+    trainer = bench_trainer(payload["arenas"], "soccar", seed)
+    mesh = meshmod.make_mesh(world, device_type="cuda")
+    state = meshmod.shard_train_state(trainer, trainer.init(seed), mesh)
+    tracing.reset()
+    dist.barrier()
+    state, metrics = trainer.train_iteration(state)
+    out = {"launches": tracing.summary()["counters"]["kernel.launches"],
+           **iteration_result(trainer, state, metrics)}
+    if payload.get("end"):
+        from torch_card import kernel_and_plain, respawn_draws, sampled_actions
+        env = trainer.env
+        gen = torch.Generator(device="cuda").manual_seed(seed + 1 + rank)
+        actions = sampled_actions(trainer, state, gen)
+        got, live = kernel_and_plain(
+            state.env_states.phys, env.action_parser.parse(actions),
+            respawn_draws(gen, *actions.shape), env.params, env.teams_np)
+        out["end"] = [tree_map(lambda t: t.cpu(), x)
+                      for x in (got, live.want)]
+    return out
+
+
+def iteration_result(trainer, state, metrics) -> dict:
+    """The parameters, every metric, the return statistic and the step
+    count after an iteration."""
+    st = state.return_stat
+    return {"params": {k: v.detach().cpu().clone() for k, v in
+                       trainer.learner.state_dict().items()},
+            "metrics": metrics_np(metrics),
+            "return_stat": [float(st.count), float(st.mean), float(st.m2)],
+            "total_timesteps": state.total_timesteps}
+
 
 # ---------------------------------------------------------------------------
 # spawning
 
-def _rank_main(rank, world, store, folder, payload):
+def _rank_main(rank, world, store, folder, payload, job, device, backend):
     torch.set_num_threads(1)
     try:
         meshmod.initialize_distributed(f"file://{store}", world, rank,
-                                       device="cpu")
-        result = iterate_job(rank, world, payload)
+                                       device=device, backend=backend)
+        result = job(rank, world, payload)
         dist.destroy_process_group()
     except BaseException:
         with open(os.path.join(folder, f"rank{rank}.err"), "w") as f:
@@ -237,15 +283,17 @@ def _rank_main(rank, world, store, folder, payload):
     torch.save(result, os.path.join(folder, f"rank{rank}.pt"))
 
 
-def start(world: int, folder, payload: dict) -> tuple:
-    """Start ``world`` gloo ranks of ``iterate_job``; ``finish`` waits for
-    them."""
+def start(world: int, folder, payload: dict, job=iterate_job,
+          device: str = "cpu", backend: str | None = None) -> tuple:
+    """Start ``world`` ranks of ``job`` (a function of this module) on
+    ``device`` (gloo on the CPU and NCCL on the card unless ``backend``
+    says); ``finish`` waits for them."""
     folder = str(folder)
     os.makedirs(folder, exist_ok=True)
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main,
                          args=(r, world, os.path.join(folder, "store"),
-                               folder, payload))
+                               folder, payload, job, device, backend))
              for r in range(world)]
     for p in procs:
         p.start()
